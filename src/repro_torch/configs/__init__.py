@@ -1,0 +1,53 @@
+"""Architecture registry of the port: ``get_arch(name)`` resolves through
+ARCHS. Only the architectures whose whole path the port runs are
+registered."""
+import dataclasses
+
+from repro_torch.configs.base import (
+    LayerSpec,
+    MambaConfig,
+    ModelConfig,
+    MoEConfig,
+    RwkvConfig,
+    ShapeCell,
+)
+
+from repro_torch.configs import olmoe_1b_7b  # noqa: E402
+
+ARCHS = {m.CONFIG.name: m.CONFIG for m in (olmoe_1b_7b,)}
+
+
+def get_arch(name: str) -> ModelConfig:
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")
+    return ARCHS[name]
+
+
+def reduced_config(cfg: ModelConfig, **overrides) -> ModelConfig:
+    """Family-preserving smoke-test reduction: few layers, thin width, few
+    experts, tiny vocab. Keeps the layer-pattern structure (>= one period).
+    Same reduction as the JAX package's, so both sides build one model."""
+    period = cfg.period
+    n_layers = max(len(period), 2)
+    moe = cfg.moe
+    if moe is not None:
+        moe = dataclasses.replace(
+            moe, num_experts=min(moe.num_experts, 8), d_expert=64,
+            d_shared_expert=64 if moe.num_shared_experts else 0)
+    kw = dict(
+        num_layers=n_layers,
+        d_model=64,
+        num_heads=4,
+        num_kv_heads=min(cfg.num_kv_heads, 2) if cfg.num_kv_heads < cfg.num_heads else 4,
+        d_head=16,
+        d_ff=128,
+        vocab_size=512,
+        moe=moe,
+        encoder_layers=2 if cfg.encoder_layers else 0,
+        n_frontend_tokens=8 if cfg.frontend else 0,
+        sliding_window=8 if cfg.sliding_window else 0,
+    )
+    if cfg.attn_kind == "mla":
+        kw.update(mla_kv_lora_rank=32, mla_q_lora_rank=32, mla_rope_head_dim=8)
+    kw.update(overrides)
+    return cfg.replace(**kw)

@@ -1,0 +1,64 @@
+"""Carry JAX-initialised weights and caches across to the port.
+
+The inputs are trees of numpy arrays (``jax.tree.map(np.asarray, tree)``
+on the JAX side), never JAX arrays, so this module imports no JAX. A
+bfloat16 leaf is a numpy array whose ``dtype.name`` is "bfloat16"; it goes
+across bit for bit through a uint16 view. The JAX stack stores each period
+position's leaves stacked over periods (``{"periods": (...), "rem": (...)}``)
+for ``lax.scan``; the port keeps one entry per layer, in layer order.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List
+
+import numpy as np
+import torch
+
+
+def tree_map(fn: Callable, tree: Any) -> Any:
+    """Apply `fn` to every leaf of a tree of dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def to_torch(a: np.ndarray, device="cpu") -> torch.Tensor:
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.array(a.view(np.uint16))).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device)
+
+
+def unstack_layers(stack: dict, cfg) -> List[Any]:
+    """{"periods": tuple of period-stacked trees, "rem": tuple} -> one tree
+    per layer, in the order the JAX stack runs them (period j, position i
+    is layer j * len(period) + i; the remainder follows)."""
+    n_pos = len(cfg.period)
+    layers = []
+    for j in range(cfg.n_periods):
+        for i in range(n_pos):
+            layers.append(tree_map(lambda a: a[j], stack["periods"][i]))
+    layers.extend(stack["rem"])
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"{len(layers)} layers in the tree, config has "
+                         f"{cfg.num_layers}")
+    return layers
+
+
+def params_from_jax(tree: dict, cfg, device="cpu") -> dict:
+    """JAX ``init_model`` params (numpy leaves) -> the port's params."""
+    out = {k: tree_map(lambda a: to_torch(a, device), v)
+           for k, v in tree.items() if k != "stack"}
+    out["stack"] = [tree_map(lambda a: to_torch(a, device), layer)
+                    for layer in unstack_layers(tree["stack"], cfg)]
+    return out
+
+
+def cache_from_jax(tree: dict, cfg, device="cpu") -> List[dict]:
+    """JAX caches (``init_cache`` / ``prefill`` layout, numpy leaves) -> the
+    port's per-layer cache list."""
+    return [tree_map(lambda a: to_torch(a, device).contiguous(), layer)
+            for layer in unstack_layers(tree, cfg)]

@@ -1,0 +1,81 @@
+"""Wrapper of the CUDA decode-attention kernel (``csrc/flash_decode.cu``),
+the port of the Pallas kernel ``repro.kernels.flash_decode.flash_decode_pallas``.
+
+``flash_decode_cuda`` checks its tensors, turns ``length`` into an int32
+[B] device tensor (one valid length per slot; a scalar broadcasts),
+allocates the output and launches on the current stream. Its plain version
+is ``ref.flash_decode_ref``; ``ops.flash_decode`` picks between them by
+device. ``launches`` counts the kernel launches of this process.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+NAME = "flash_decode"
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HD = 256
+launches = 0
+
+
+def _lib():
+    lib = build.library(NAME)
+    if lib.flash_decode_launch.argtypes is None:
+        lib.flash_decode_launch.argtypes = [ctypes.c_void_p] * 5 \
+            + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.flash_decode_launch.restype = ctypes.c_int
+    return lib
+
+
+def lengths_tensor(length, batch: int, device) -> torch.Tensor:
+    """int32 [B] lengths on `device` from an int, a 0-d or a [B] tensor."""
+    lengths = torch.as_tensor(length, device=device).to(torch.int32)
+    if lengths.dim() == 0:
+        lengths = lengths.expand(batch)
+    if tuple(lengths.shape) != (batch,):
+        raise ValueError(f"flash_decode: length {tuple(lengths.shape)} is not "
+                         f"a scalar or [{batch}]")
+    return lengths.contiguous()
+
+
+def _check(q, k, v):
+    if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError("flash_decode: q [B, H, hd] and k/v [B, KH, S, hd] expected")
+    b, h, hd = q.shape
+    kh, s = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != hd or h % kh:
+        raise ValueError(f"flash_decode: q {tuple(q.shape)} does not fit "
+                         f"k/v {tuple(k.shape)}")
+    if hd > MAX_HD:
+        raise ValueError(f"flash_decode: head dim {hd} > {MAX_HD}")
+    for a in (q, k, v):
+        if a.device.type != "cuda" or a.device != q.device:
+            raise ValueError("flash_decode: q, k, v must be on one CUDA device")
+        if a.dtype != q.dtype:
+            raise ValueError("flash_decode: q, k, v must share one dtype")
+        if not a.is_contiguous():
+            raise ValueError("flash_decode: tensors must be contiguous")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"flash_decode: dtype {q.dtype} not supported")
+    return b, h, kh, s, hd
+
+
+def flash_decode_cuda(q, k, v, length):
+    """q: [B, H, hd]; k/v: [B, KH, S, hd]; length: int, 0-d or [B] int
+    tensor of valid positions per slot. Returns [B, H, hd] in q's dtype."""
+    global launches
+    b, h, kh, s, hd = _check(q, k, v)
+    lengths = lengths_tensor(length, b, q.device)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        out = torch.empty_like(q)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        status = lib.flash_decode_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), b, kh, h // kh, s, hd, DTYPES[q.dtype], stream)
+    build.check(status, NAME)
+    launches += 1
+    return out

@@ -1,0 +1,40 @@
+"""Plain PyTorch versions of every kernel: what each computes, the
+allclose reference on the card, and what the wrappers run on CPU tensors.
+They keep the JAX oracles' arithmetic (``repro.kernels.ref``)."""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+
+def moe_gmm_ref(x, w_gate, w_up, w_down):
+    """Grouped expert SwiGLU FFN.
+    x: [E, T, D]; w_gate/w_up: [E, D, F]; w_down: [E, F, D] -> [E, T, D].
+    silu in f32, rounded to x.dtype, then multiplied by u (the oracle's
+    rounding, not the kernel's)."""
+    g = torch.einsum("etd,edf->etf", x, w_gate)
+    u = torch.einsum("etd,edf->etf", x, w_up)
+    h = F.silu(g.float()).to(x.dtype) * u
+    return torch.einsum("etf,efd->etd", h, w_down)
+
+
+def flash_decode_ref(q, k, v, length):
+    """Single-token decode attention, math in f32.
+    q: [B, H, hd]; k/v: [B, KH, S, hd]; length: int, 0-d tensor or [B] int
+    tensor — number of valid positions (per slot). Returns [B, H, hd] in
+    q's dtype."""
+    B, H, hd = q.shape
+    KH, S = k.shape[1], k.shape[2]
+    g = H // KH
+    qr = q.reshape(B, KH, g, hd).float()
+    s = torch.einsum("bhgd,bhsd->bhgs", qr, k.float()) / math.sqrt(hd)
+    length = torch.as_tensor(length, device=q.device).reshape(-1, 1)
+    mask = torch.arange(S, device=q.device)[None, :] < length     # [B|1, S]
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgs,bhsd->bhgd", p, v.float())
+    return o.reshape(B, H, hd).to(q.dtype)

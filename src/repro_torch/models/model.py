@@ -1,0 +1,99 @@
+"""Model API: init / prefill / decode / cache construction.
+
+Port of ``repro.models.model`` for the attention families. Parameters are
+a dict ``{"embed", "stack": [per-layer dicts], "final_norm"}``; caches a
+list with one ``{"mixer": {"k", "v"}}`` per layer. Entry points run on
+``device="cuda"`` unless told otherwise, and raise when there is no card.
+"""
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as tf
+from repro_torch.models.layers import common
+from repro_torch.sharding.dist import Dist, NullDist
+from repro_torch.sharding.plans import ShardingPlan, null_plan
+
+
+def init_model(cfg: ModelConfig, plan: Optional[ShardingPlan] = None, *,
+               seed: int = 0, device="cuda"):
+    """Random weights at the config's widths, drawn on `device` from a
+    ``torch.Generator`` seeded with `seed`. The CPU and the card draw
+    different numbers from one seed."""
+    dev = resolve_device(device)
+    plan = plan or null_plan("decode")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return {
+        "embed": common.init_embedding(cfg, plan, gen),
+        "stack": tf.init_stack(cfg, plan, gen),
+        "final_norm": common.init_rms_norm(cfg.d_model, torch.float32, dev),
+    }
+
+
+def _plan_dist(plan, dist, kind):
+    return plan or null_plan(kind), dist or NullDist()
+
+
+def prefill_logits(params, batch, cfg: ModelConfig,
+                   plan: Optional[ShardingPlan] = None,
+                   dist: Optional[Dist] = None):
+    """batch: {"tokens": [B, S]}. Returns (f32 logits of the last position
+    [B, 1, V_pad], caches)."""
+    plan, dist = _plan_dist(plan, dist, "prefill")
+    x = common.embed(params["embed"], batch["tokens"], cfg, plan, dist)
+    x, caches = tf.apply_stack(params["stack"], x, cfg, plan, dist,
+                               mode="prefill")
+    x = common.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    return common.lm_logits(params["embed"], x[:, -1:], cfg, plan, dist), caches
+
+
+def prefill(params, batch, cfg: ModelConfig, plan: Optional[ShardingPlan] = None,
+            dist: Optional[Dist] = None):
+    """Returns (next_token [B, 1] int32, caches). Fills the KV caches."""
+    plan, dist = _plan_dist(plan, dist, "prefill")
+    logits, caches = prefill_logits(params, batch, cfg, plan, dist)
+    return common.greedy_sample(logits, cfg, plan, dist), caches
+
+
+def decode_logits(params, caches, tokens, pos, cfg: ModelConfig,
+                  plan: Optional[ShardingPlan] = None,
+                  dist: Optional[Dist] = None):
+    """tokens [B, 1] -> (f32 logits [B, 1, V_pad], caches). pos: a scalar
+    position for the whole batch (the JAX semantics: one MoE capacity
+    group over the batch) or a [B] tensor, one position per slot (each slot
+    its own capacity group, as the JAX engine's vmap). Caches are written
+    in place."""
+    plan, dist = _plan_dist(plan, dist, "decode")
+    x = common.embed(params["embed"], tokens, cfg, plan, dist)
+    x, caches = tf.apply_stack(params["stack"], x, cfg, plan, dist,
+                               mode="decode", caches=caches, pos=pos)
+    x = common.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    return common.lm_logits(params["embed"], x, cfg, plan, dist), caches
+
+
+def decode_step(params, caches, tokens, pos, cfg: ModelConfig,
+                plan: Optional[ShardingPlan] = None,
+                dist: Optional[Dist] = None):
+    """One serving step: tokens [B, 1] -> (next token [B, 1], caches)."""
+    plan, dist = _plan_dist(plan, dist, "decode")
+    logits, caches = decode_logits(params, caches, tokens, pos, cfg, plan, dist)
+    return common.greedy_sample(logits, cfg, plan, dist), caches
+
+
+def init_cache(cfg: ModelConfig, plan: Optional[ShardingPlan] = None,
+               batch: int = 1, seq: int = 1, *, device="cuda") -> List[dict]:
+    """Zero-filled decode caches: per layer k, v [batch, KV, seq, hd]."""
+    dev = resolve_device(device)
+    dt = common.dtype_of(cfg)
+    shape = (batch, cfg.num_kv_heads, seq, cfg.head_dim)
+    caches = []
+    for spec in cfg.layer_specs:
+        tf.check_supported(spec, cfg)
+        caches.append({"mixer": {"k": torch.zeros(shape, dtype=dt, device=dev),
+                                 "v": torch.zeros(shape, dtype=dt, device=dev)}})
+    return caches

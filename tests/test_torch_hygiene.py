@@ -1,0 +1,64 @@
+"""The PyTorch port stands alone: no file of it, nor chip_smoke.py, imports
+JAX or the JAX package; importing it loads no JAX; and its entry points
+refuse to run on the CPU unless asked to."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_torch)|"
+    r"from\s+repro(\.|\s)(?!_torch))", re.M)
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_imports(path):
+    text = path.read_text()
+    assert not FORBIDDEN.findall(text), f"{path} imports jax or repro"
+
+
+def test_forbidden_pattern_catches_imports():
+    for line in ("import jax", "from jax import numpy", "import repro",
+                 "from repro.configs import get_arch", "  import jax.numpy as jnp"):
+        assert FORBIDDEN.search(line), line
+    for line in ("import repro_torch", "from repro_torch.configs import x",
+                 "import torch"):
+        assert not FORBIDDEN.search(line), line
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys\n"
+            "import repro_torch, repro_torch.convert, repro_torch.kernels.ops\n"
+            "import repro_torch.serving.engine, repro_torch.models.model\n"
+            "import repro_torch.kernels.build\n"
+            "assert 'jax' not in sys.modules, 'jax imported'\n"
+            "assert not any(m == 'repro' or m.startswith('repro.') "
+            "for m in sys.modules), 'repro imported'\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                       capture_output=True, text=True)
+    assert r.returncode == 0, r.stderr
+
+
+def test_default_device_raises_without_a_card(monkeypatch):
+    """With no CUDA device, the default-device entry points raise instead of
+    running on the CPU."""
+    from repro_torch.configs import get_arch, reduced_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced_config(get_arch("olmoe-1b-7b"), dtype="float32")
+    params = M.init_model(cfg, device="cpu")
+    for call in (lambda: Engine(cfg, params), lambda: M.init_model(cfg),
+                 lambda: M.init_cache(cfg, batch=1, seq=4)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

@@ -1,0 +1,199 @@
+"""Kernels of the PyTorch port: the plain versions against the JAX oracles
+(``repro.kernels.ref``) and the Pallas kernels in interpret mode, on the
+same numpy inputs, and the dispatch by device. The CUDA kernels against
+the plain versions are in test_torch_cuda.py."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.flash_decode import flash_decode_pallas  # noqa: E402
+from repro.kernels.moe_gmm import moe_gmm_pallas  # noqa: E402
+from repro_torch.kernels import flash_decode as tfd  # noqa: E402
+from repro_torch.kernels import moe_gmm as tmg  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def arrays(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal(s) * 0.3).astype(np.float32) for s in shapes]
+
+
+def both(a, dtype):
+    jdt, tdt = DTYPES[dtype]
+    return jnp.asarray(a).astype(jdt), torch.from_numpy(a).to(tdt)
+
+
+def f32(a):
+    return np.asarray(a.float() if torch.is_tensor(a) else a, np.float32)
+
+
+def gmm_inputs(seed, e, t, d, f):
+    return arrays(seed, (e, t, d), (e, d, f), (e, d, f), (e, f, d))
+
+
+def assert_bf16_rule(got, oracle, truth):
+    """bf16: the port at least as close to the f32 truth as the JAX bf16
+    oracle, within 1.5x + 1e-3 (the rule of tests/test_kernels.py)."""
+    err, err_oracle = np.abs(got - truth).max(), np.abs(oracle - truth).max()
+    assert err <= err_oracle * 1.5 + 1e-3, (err, err_oracle)
+
+
+# ---------------------------------------------------------------------------
+# moe_gmm
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("e,t,d,f", [(2, 128, 64, 256), (1, 128, 256, 256),
+                                     (3, 64, 64, 512)])
+def test_moe_gmm_plain_matches_jax(e, t, d, f, dtype):
+    ins = gmm_inputs(e * 1000 + t, e, t, d, f)
+    jx, tx = zip(*(both(a, dtype) for a in ins))
+    got = f32(ref.moe_gmm_ref(*tx))
+    want = f32(jref.moe_gmm_ref(*jx))
+    pallas = f32(moe_gmm_pallas(*jx, interpret=True))
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+        np.testing.assert_allclose(got, pallas, atol=2e-5, rtol=2e-5)
+        return
+    truth = f32(jref.moe_gmm_ref(*(jnp.asarray(a) for a in ins)))
+    assert_bf16_rule(got, want, truth)
+    assert_bf16_rule(pallas, want, truth)
+
+
+@pytest.mark.parametrize("e,t,d,f", [(2, 100, 64, 300), (1, 7, 32, 130),
+                                     (3, 130, 64, 256)])
+def test_moe_gmm_plain_unaligned(e, t, d, f):
+    """Any T and F, no tile padding needed by the plain version."""
+    ins = gmm_inputs(t * 10 + f, e, t, d, f)
+    jx, tx = zip(*(both(a, "float32") for a in ins))
+    got = f32(ops.moe_gmm(*tx))
+    assert got.shape == (e, t, d)
+    np.testing.assert_allclose(got, f32(jref.moe_gmm_ref(*jx)), atol=3e-5,
+                               rtol=3e-5)
+    pallas = moe_gmm_pallas(*jx, block_t=64, block_f=128, interpret=True)
+    np.testing.assert_allclose(got, f32(pallas), atol=3e-5, rtol=3e-5)
+
+
+def test_moe_gmm_expert_independence():
+    e, t, d, f = 3, 16, 32, 64
+    x, wg, wu, wd = (torch.from_numpy(a) for a in gmm_inputs(7, e, t, d, f))
+    base = ops.moe_gmm(x, wg, wu, wd)
+    x2 = x.clone()
+    x2[0] = 0.0
+    out = ops.moe_gmm(x2, wg, wu, wd)
+    torch.testing.assert_close(out[1:], base[1:], atol=1e-6, rtol=0)
+    assert out[0].abs().max() == 0
+
+
+# ---------------------------------------------------------------------------
+# flash_decode
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kh,s,hd", [
+    (2, 8, 8, 512, 64),      # MHA
+    (2, 8, 2, 1024, 64),     # GQA 4:1
+    (4, 4, 4, 500, 32),      # S not a multiple of 8
+    (1, 16, 1, 77, 16),      # MQA, ragged S
+])
+def test_flash_decode_plain_matches_jax(b, h, kh, s, hd, dtype):
+    ins = arrays(b * 100 + s, (b, h, hd), (b, kh, s, hd), (b, kh, s, hd))
+    jx, tx = zip(*(both(a, dtype) for a in ins))
+    length = s - 3
+    got = f32(ops.flash_decode(*tx, length))
+    want = f32(jref.flash_decode_ref(*jx, jnp.int32(length)))
+    pallas = f32(flash_decode_pallas(*jx, jnp.int32(length), block_s=s,
+                                     interpret=True))
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+        np.testing.assert_allclose(got, pallas, atol=2e-5, rtol=2e-5)
+        return
+    truth = f32(jref.flash_decode_ref(*(jnp.asarray(a) for a in ins),
+                                      jnp.int32(length)))
+    assert_bf16_rule(got, want, truth)
+    assert_bf16_rule(pallas, want, truth)
+
+
+@pytest.mark.parametrize("as_tensor", [False, True])
+def test_flash_decode_per_slot_lengths(as_tensor):
+    """[B] lengths == a loop of scalar-length calls, on both sides."""
+    b, h, kh, s, hd = 4, 4, 2, 40, 16
+    q, k, v = (torch.from_numpy(a) for a in
+               arrays(5, (b, h, hd), (b, kh, s, hd), (b, kh, s, hd)))
+    lens = [1, 17, 40, 9]
+    got = ops.flash_decode(q, k, v, torch.tensor(lens, dtype=torch.int32))
+    for i, n in enumerate(lens):
+        n_arg = torch.tensor(n) if as_tensor else n
+        one = ops.flash_decode(q[i:i + 1], k[i:i + 1], v[i:i + 1], n_arg)
+        torch.testing.assert_close(got[i:i + 1], one, atol=1e-6, rtol=0)
+        jax_one = jref.flash_decode_ref(*(jnp.asarray(t[i:i + 1].numpy())
+                                          for t in (q, k, v)), n)
+        np.testing.assert_allclose(f32(one), f32(jax_one), atol=2e-5, rtol=2e-5)
+
+
+def test_flash_decode_convexity():
+    """The output is a convex combination of V rows."""
+    q, k, v = (torch.from_numpy(a) for a in
+               arrays(3, (1, 2, 16), (1, 1, 256, 16), (1, 1, 256, 16)))
+    o = ops.flash_decode(q, k, v, 256).reshape(1, 1, -1, 16)
+    vmin, vmax = v.amin(dim=2)[:, :, None], v.amax(dim=2)[:, :, None]
+    assert (o >= vmin - 1e-4).all() and (o <= vmax + 1e-4).all()
+
+
+# ---------------------------------------------------------------------------
+# dispatch and wrapper checks (no card needed)
+# ---------------------------------------------------------------------------
+
+def test_ops_cpu_uses_plain_versions():
+    x, wg, wu, wd = (torch.from_numpy(a) for a in gmm_inputs(1, 2, 8, 16, 24))
+    n0 = tmg.launches
+    assert torch.equal(ops.moe_gmm(x, wg, wu, wd), ref.moe_gmm_ref(x, wg, wu, wd))
+    q, k, v = (torch.from_numpy(a) for a in
+               arrays(2, (2, 4, 8), (2, 2, 12, 8), (2, 2, 12, 8)))
+    m0 = tfd.launches
+    assert torch.equal(ops.flash_decode(q, k, v, 5),
+                       ref.flash_decode_ref(q, k, v, 5))
+    assert (tmg.launches, tfd.launches) == (n0, m0)
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """A wrapper launches on CUDA tensors or raises; it never computes on
+    the CPU."""
+    x, wg, wu, wd = (torch.from_numpy(a) for a in gmm_inputs(1, 2, 8, 16, 24))
+    with pytest.raises(ValueError, match="CUDA"):
+        tmg.moe_gmm_cuda(x, wg, wu, wd)
+    q, k, v = (torch.from_numpy(a) for a in
+               arrays(2, (2, 4, 8), (2, 2, 12, 8), (2, 2, 12, 8)))
+    with pytest.raises(ValueError, match="CUDA"):
+        tfd.flash_decode_cuda(q, k, v, 5)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.moe_gmm(x.to("meta"), wg, wu, wd)
+
+
+def test_build_skips_libraries_already_built(tmp_path, monkeypatch):
+    """A library is named by its source and flags, and one that exists is
+    not compiled again (so no nvcc is needed here)."""
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    paths = {n: build.lib_path(n) for n in build.KERNELS}
+    assert len(set(paths.values())) == len(build.KERNELS)
+    assert all(p.parent == tmp_path for p in paths.values())
+    for p in paths.values():
+        p.touch()
+    assert build.build_all() == {}
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ["-G"])
+    assert build.lib_path("moe_gmm") != paths["moe_gmm"]
+
+
+def test_lengths_tensor_shapes():
+    assert tfd.lengths_tensor(7, 3, "cpu").tolist() == [7, 7, 7]
+    assert tfd.lengths_tensor(torch.tensor(2), 2, "cpu").dtype == torch.int32
+    with pytest.raises(ValueError):
+        tfd.lengths_tensor(torch.tensor([1, 2]), 3, "cpu")
