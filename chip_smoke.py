@@ -6,16 +6,23 @@
 Phases, each printing its own lines before the last:
   1. environment: torch/CUDA versions and the card's name and power limit;
   2. build: every CUDA kernel of ``src/repro_torch/csrc`` compiled with nvcc,
-     one process per source, all at once;
+     one process per source, all at once; each kernel's registers and local
+     (spilled) bytes per thread;
   3. kernels against their plain PyTorch versions on the card, at the main
-     path's shapes (olmoe-1b-7b), with times, bounds and library yardsticks;
+     path's shapes (olmoe-1b-7b) and at edge shapes, with device times
+     (``time_ms``: the host's enqueue cost kept out), bounds and library
+     yardsticks;
   4. float32 parity: full width, 2 layers, the card's path (kernels) against
      the port's plain CPU path on the same weights;
   5. main path: full olmoe-1b-7b (16 layers, bf16, random weights from seed
      0) served by ``Engine(max_batch=8, max_seq=512)``: 16 requests of 16-128
      prompt tokens and 32 new tokens; the kernels' launch counters must show
-     16 launches of each per decode wave;
-  6. where a decode wave's device time goes (torch.profiler).
+     16 calls of each per decode wave, and every ``moe_gmm`` call (16 per
+     wave and per prefill) in its tensor-core variant;
+  6. where a decode wave's device time goes (torch.profiler), with each
+     kernel's span per call there. Each kernel's ``time_ms`` must agree
+     within 15 % with the profiler's span of its calls, queued the same
+     way behind the same spin (``profiled_ms``).
 Then one JSON line of per-kernel numbers, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero; without a CUDA device it exits non-zero before printing a
@@ -47,23 +54,147 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call, from CUDA events around each call; a
-    64 MB write between calls evicts the 50 MB L2, as the decode step's
-    weight stream does between two layers' calls."""
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    for _ in range(warmup):
-        fn()
-    pairs = []
+_cycles_per_ms = None
+_floor_ms = None
+
+
+def _spin_cycles_per_ms(torch) -> float:
+    """The device's spin rate for torch.cuda._sleep, from CUDA events."""
+    global _cycles_per_ms
+    if _cycles_per_ms is None:
+        torch.cuda._sleep(1_000_000)                  # warm the clock up
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        torch.cuda._sleep(10_000_000)
+        e.record()
+        torch.cuda.synchronize()
+        _cycles_per_ms = 10_000_000 / s.elapsed_time(e)
+    return _cycles_per_ms
+
+
+def _queue_timed_calls(torch, fn, iters: int, cycles: int, flush):
+    """Queue `iters` calls of `fn`, each behind an L2 flush and a device
+    spin of `cycles`, between its own pair of CUDA events; wait for them.
+    Returns the pairs and whether any call was late: its start event had
+    already passed when the host finished queueing it."""
+    pairs, late = [], 0
     for _ in range(iters):
-        flush.zero_()
+        flush.sum()
+        torch.cuda._sleep(cycles)
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
         fn()
         e.record()
+        late += s.query()                             # device got there first
         pairs.append((s, e))
     torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in pairs) / iters
+    return pairs, bool(late)
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def _event_ms(torch, fn, iters: int, warmup: int):
+    """(median ms between the CUDA events around one call, the spin in
+    cycles that kept every call's enqueue ahead of the device); see
+    ``time_ms``."""
+    flush = torch.zeros(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0                 # enqueue only, no sync
+    torch.cuda.synchronize()
+    cycles = int((3 * 1e3 * host_s + 0.05) * _spin_cycles_per_ms(torch))
+    for _ in range(4):
+        pairs, late = _queue_timed_calls(torch, fn, iters, cycles, flush)
+        if not late:
+            return _median([s.elapsed_time(e) for s, e in pairs]), cycles
+        cycles *= 2
+    raise AssertionError("time_ms: the host could not enqueue the call "
+                         "within the device spin")
+
+
+def event_floor_ms(torch) -> float:
+    """The time ``_event_ms`` gives an empty call: the event pair's own cost."""
+    global _floor_ms
+    if _floor_ms is None:
+        _floor_ms = _event_ms(torch, lambda: None, iters=51, warmup=3)[0]
+    return _floor_ms
+
+
+def time_ms(torch, fn, iters: int = 21, warmup: int = 3, spin: list | None = None) -> float:
+    """Median device time of one call.
+
+    Before each call the stream gets a 64 MB read, which evicts the 50 MB
+    L2 and leaves it clean, as the decode step's weight stream does between
+    two layers' calls, and then a device spin (torch.cuda._sleep) longer
+    than the host takes to enqueue the call. So the start event, the call's
+    kernels and the end event are all queued before the device reaches
+    them, and the host's enqueue cost stays out of the time. After each call
+    the start event must still be pending; if any was not, the spin was too
+    short, and all the calls are taken again with a spin twice as long.
+    The median time between the events, less that of an empty call
+    (``event_floor_ms``), is the call's device time. The spin used is
+    appended to `spin` when given."""
+    ms, cycles = _event_ms(torch, fn, iters, warmup)
+    if spin is not None:
+        spin.append(cycles)
+    return ms - event_floor_ms(torch)
+
+
+# substrings of each wrapper's kernel names, and its kernels per call
+KERNEL_NAMES = {"moe_gmm": (("moe_gmm_tc",), 2), "flash_decode": (("flash_decode",), 2)}
+
+
+def call_times(prof, pats, per_call):
+    """(span, busy, n) of a wrapper's calls in a profile: span and busy in
+    ms, each the median over the n calls. The span runs from the call's
+    first kernel's start to its last kernel's end; busy is the time in
+    which at least one of its kernels runs, without the gaps between them.
+    (None, None, 0) when the profile holds no such call."""
+    from torch.autograd import DeviceType
+    mine = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and any(p in e.name for p in pats)), key=lambda e: e.time_range.start)
+    calls = [mine[i:i + per_call] for i in range(0, len(mine) - per_call + 1, per_call)]
+    if not calls:
+        return None, None, 0
+    spans, busy = [], []
+    for call in calls:
+        total, end = 0.0, -math.inf
+        for e in call:                                # union of the intervals
+            total += max(0.0, e.time_range.end - max(e.time_range.start, end))
+            end = max(end, e.time_range.end)
+        busy.append(total)
+        spans.append(call[-1].time_range.end - call[0].time_range.start)
+    return _median(spans) / 1e3, _median(busy) / 1e3, len(calls)
+
+
+def profiled_ms(torch, fn, name: str, cycles: int, iters: int = 21) -> float:
+    """The profiler's median device span of one call of `fn`: the calls
+    queued as ``time_ms`` queued them, behind the same flush and the spin
+    (`cycles`) that ``time_ms`` settled on, and nothing else in the
+    profile. A pass with a late call (its span may hold the host's gap
+    before a later kernel) is dropped and taken again with twice the spin:
+    the cross-check of ``time_ms``."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.zeros(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, late = _queue_timed_calls(torch, fn, iters, cycles, flush)
+        if not late:
+            span, _, n = call_times(prof, *KERNEL_NAMES[name])
+            if n != iters:
+                raise AssertionError(f"profiled_ms: {n} calls of {name} in the "
+                                     f"profile, want {iters}")
+            return span
+        cycles *= 2
+    raise AssertionError("profiled_ms: the host could not enqueue the call "
+                         "within the device spin")
 
 
 def bound(bytes_moved: float, ops: float, dtype: str):
@@ -90,16 +221,25 @@ def check_moe_gmm(torch, ref, kmoe, gen):
         return [x] + ws
 
     results = {}
+    prefill_t = math.ceil(128 * 8 * 1.5 / 64)
     cases = [("decode", 64, 8, 2048, 1024, "bfloat16"),
-             ("prefill", 64, math.ceil(128 * 8 * 1.5 / 64), 2048, 1024, "bfloat16"),
+             ("prefill", 64, prefill_t, 2048, 1024, "bfloat16"),
              ("decode_f32", 64, 8, 2048, 1024, "float32"),
+             ("tc_one_token", 4, 1, 2048, 1024, "bfloat16"),
+             ("tc_t100", 4, 100, 2048, 1024, "bfloat16"),
+             ("tc_t257", 2, 257, 2048, 1024, "bfloat16"),
              ("unaligned_f32", 8, 100, 2048, 1000, "float32"),
-             ("unaligned_bf16", 8, 13, 2048, 1000, "bfloat16")]
+             ("unaligned_bf16", 8, 13, 2048, 1000, "bfloat16"),
+             ("odd_f_bf16", 4, 24, 2048, 1004, "bfloat16")]
     for name, e, t, d, f, dt in cases:
         full = inputs(e, t, d, f)
         args = [a.to(getattr(torch, dt)) for a in full]
+        which = kmoe.variant(args[0].dtype, d, f)
+        v0 = kmoe.variant_launches[which]
         got = kmoe.moe_gmm_cuda(*args)
         torch.cuda.synchronize()
+        if kmoe.variant_launches[which] != v0 + 1:
+            raise AssertionError(f"moe_gmm {name}: variant {which} not counted")
         plain = ref.moe_gmm_ref(*args)
         truth = ref.moe_gmm_ref(*(a.float() for a in args))
         err, err_truth = max_err(got, plain), max_err(got, truth)
@@ -112,15 +252,22 @@ def check_moe_gmm(torch, ref, kmoe, gen):
             rule = f"bf16 err vs f32 truth <= 1.5 x plain's ({err_plain:.3g}) + 1e-3"
         if not ok or not torch.isfinite(got).all():
             raise AssertionError(f"moe_gmm {name}: err {err_truth} fails {rule}")
-        row = {"shape": [e, t, d, f], "dtype": dt, "max_abs_err": err,
-               "err_vs_f32_truth": err_truth, "rule": rule}
+        row = {"shape": [e, t, d, f], "dtype": dt, "variant": which,
+               "max_abs_err": err, "err_vs_f32_truth": err_truth, "rule": rule}
+        if which == "tensor_core":
+            row["tile_plan"] = dict(zip(("nf", "mt", "n_tiles"), kmoe.tile_plan(t)))
         if name in ("decode", "prefill", "decode_f32"):
             el = 2 if dt == "bfloat16" else 4
-            row["ms"] = time_ms(torch, lambda: kmoe.moe_gmm_cuda(*args))
+            spin = []
+            row["ms"] = time_ms(torch, lambda: kmoe.moe_gmm_cuda(*args), spin=spin)
+            if name == "decode":
+                row["profiled_ms"] = profiled_ms(
+                    torch, lambda: kmoe.moe_gmm_cuda(*args), "moe_gmm", spin[0])
             row["plain_ms"] = time_ms(torch, lambda: ref.moe_gmm_ref(*args))
             row["bound_ms"], row["bound_by"] = bound(
                 el * (2 * e * t * d + 3 * e * d * f), 6 * e * t * d * f, dt)
             row["library_ms"] = None
+            row["hbm_tb_per_s"] = el * (2 * e * t * d + 3 * e * d * f) / row["ms"] / 1e9
         results[name] = row
         log("kernel.moe_gmm", case=name, **row)
         del full, args, got, plain, truth
@@ -128,33 +275,40 @@ def check_moe_gmm(torch, ref, kmoe, gen):
 
 
 def check_flash_decode(torch, F, ref, kfd, gen):
-    B, H, KH, hd = 8, 16, 16, 128
+    B, H, hd = 8, 16, 128
     results = {}
-    cases = [("decode", 512, [17, 49, 64, 65, 100, 128, 150, 160], "bfloat16"),
-             ("ragged_S", 500, [1, 37, 63, 64, 65, 200, 333, 500], "bfloat16"),
-             ("ragged_S_f32", 500, [1, 37, 63, 64, 65, 200, 333, 500], "float32")]
-    for name, S, lens, dt in cases:
+    edges = [0, 1, 63, 64, 65, 128, 200, 500]        # chunk boundaries, 0, S
+    cases = [("decode", 16, 512, [17, 49, 64, 65, 100, 128, 150, 160], "bfloat16"),
+             ("ragged_S", 16, 500, [1, 37, 63, 64, 65, 200, 333, 500], "bfloat16"),
+             ("ragged_S_f32", 16, 500, [1, 37, 63, 64, 65, 200, 333, 500], "float32"),
+             ("gqa4_edges", 4, 500, edges, "bfloat16"),
+             ("gqa4_edges_f32", 4, 500, edges, "float32")]
+    for name, KH, S, lens, dt in cases:
         tdt = getattr(torch, dt)
         q = torch.randn((B, H, hd), generator=gen, device="cuda").to(tdt)
         k = torch.randn((B, KH, S, hd), generator=gen, device="cuda").to(tdt)
         v = torch.randn((B, KH, S, hd), generator=gen, device="cuda").to(tdt)
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        live = lengths > 0                            # length 0 gives zeros
+        row = {"B": B, "H": H, "KH": KH, "S": S, "hd": hd, "lengths": lens,
+               "dtype": dt}
         got = kfd.flash_decode_cuda(q, k, v, lengths)
         torch.cuda.synchronize()
         want = ref.flash_decode_ref(q, k, v, lengths)
         truth = ref.flash_decode_ref(q.float(), k.float(), v.float(), lengths)
-        err = max_err(got, want)
+        err = max_err(got[live], want[live])
         if dt == "float32":
-            ok = torch.allclose(got, want, atol=1e-4, rtol=1e-4)
+            ok = torch.allclose(got[live], want[live], atol=1e-4, rtol=1e-4)
             rule = "f32 atol=rtol=1e-4"
         else:
-            err_plain = max_err(want, truth)
-            ok = max_err(got, truth) <= 1.5 * err_plain + 1e-3
+            err_plain = max_err(want[live], truth[live])
+            ok = max_err(got[live], truth[live]) <= 1.5 * err_plain + 1e-3
             rule = f"bf16 err vs f32 truth <= 1.5 x plain's ({err_plain:.3g}) + 1e-3"
+        ok = ok and bool((got[~live] == 0).all())
         if not ok or not torch.isfinite(got).all():
-            raise AssertionError(f"flash_decode {name}: err {err} fails {rule}")
-        row = {"B": B, "H": H, "KH": KH, "S": S, "hd": hd, "lengths": lens,
-               "dtype": dt, "max_abs_err": err, "rule": rule}
+            raise AssertionError(f"flash_decode {name}: err {err} fails {rule} "
+                                 f"(or a length-0 slot is not 0)")
+        row["max_abs_err"], row["rule"] = err, rule
         if name == "decode":
             mask = (torch.arange(S, device="cuda")[None, :] < lengths[:, None])
             mask = mask[:, None, None, :]
@@ -165,7 +319,12 @@ def check_flash_decode(torch, F, ref, kfd, gen):
             lib_err = max_err(library(), truth)
             if lib_err > 2e-2:
                 raise AssertionError(f"library yardstick disagrees: {lib_err}")
-            row["ms"] = time_ms(torch, lambda: kfd.flash_decode_cuda(q, k, v, lengths))
+            spin = []
+            row["ms"] = time_ms(
+                torch, lambda: kfd.flash_decode_cuda(q, k, v, lengths), spin=spin)
+            row["profiled_ms"] = profiled_ms(
+                torch, lambda: kfd.flash_decode_cuda(q, k, v, lengths), "flash_decode",
+                spin[0])
             row["plain_ms"] = time_ms(torch, lambda: ref.flash_decode_ref(q, k, v, lengths))
             row["library_ms"] = time_ms(torch, library)
             n = sum(lens)
@@ -278,13 +437,14 @@ def main_path(torch, get_arch, M, Engine, kmoe, kfd):
     for p in prompts:
         eng.submit(p, max_new_tokens=new_tokens)
     torch.cuda.reset_peak_memory_stats()
-    kmoe.launches = 0
+    kmoe.reset_counts()
     kfd.launches = 0
     t0 = time.perf_counter()
     out = eng.run()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = {"moe_gmm": kmoe.launches, "flash_decode": kfd.launches}
+    variants = dict(kmoe.variant_launches)
 
     waves, L = len(eng.wave_s), cfg.num_layers
     if sorted(out) != list(range(16)):
@@ -295,9 +455,10 @@ def main_path(torch, get_arch, M, Engine, kmoe, kfd):
     if launches["flash_decode"] != L * waves:
         raise AssertionError(f"flash_decode launched {launches['flash_decode']} "
                              f"times, want {L} per wave x {waves} waves")
-    if launches["moe_gmm"] != L * (waves + eng.prefills):
-        raise AssertionError(f"moe_gmm launched {launches['moe_gmm']} times, want "
-                             f"{L} per wave and per prefill")
+    if launches["moe_gmm"] != L * (waves + eng.prefills) or \
+            variants != {"tensor_core": launches["moe_gmm"], "cuda_core": 0}:
+        raise AssertionError(f"moe_gmm launched {variants}, want the tensor-core "
+                             f"variant {L} times per wave and per prefill, only")
     for layer in eng.caches:
         if not torch.isfinite(layer["mixer"]["k"]).all():
             raise AssertionError("non-finite KV cache")
@@ -309,6 +470,7 @@ def main_path(torch, get_arch, M, Engine, kmoe, kfd):
         "params": n_params, "init_s": init_s, "requests": 16,
         "prompt_lens": lens, "new_tokens": new_tokens, "waves": waves,
         "prefills": eng.prefills, "launches": launches,
+        "moe_gmm_variant_launches": variants,
         "launches_per_wave": {"moe_gmm": (launches["moe_gmm"] - L * eng.prefills) / waves,
                               "flash_decode": launches["flash_decode"] / waves},
         "prefill_ms_per_request": 1e3 * sum(eng.admit_s) / eng.prefills,
@@ -323,8 +485,11 @@ def main_path(torch, get_arch, M, Engine, kmoe, kfd):
 
 
 def profile_waves(torch, eng, prompts, wave_ms: float, n_waves: int = 4):
-    """Device time by kernel over a few full decode waves, and the share of
-    an unprofiled wave (`wave_ms`) in which the device is idle."""
+    """Device time by kernel over a few full decode waves, the share of an
+    unprofiled wave (`wave_ms`) in which the device is idle, and each
+    wrapper's ``call_times`` there. On this host-bound path a call's span
+    also holds the time the device waits for the host to launch the call's
+    second kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for p in prompts[:eng.max_batch]:
@@ -345,10 +510,13 @@ def profile_waves(torch, eng, prompts, wave_ms: float, n_waves: int = 4):
         rows.append((dev_us / n_waves / 1e3, evt.count // n_waves, evt.key[:90]))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
+    per_call = {name: dict(zip(("span_ms", "kernels_busy_ms", "calls"),
+                               call_times(prof, *spec)))
+                for name, spec in KERNEL_NAMES.items()}
     res = {"wave_ms_unprofiled": wave_ms, "device_busy_ms_per_wave": busy,
            "idle_share": 1 - busy / wave_ms if busy else None,
-           "kernels_per_wave": sum(r[1] for r in rows),
-           "top": [{"ms": r[0], "calls": r[1], "kernel": r[2]} for r in rows[:12]]}
+           "kernels_per_wave": sum(r[1] for r in rows), "per_call": per_call,
+           "top": [{"ms": r[0], "calls": r[1], "kernel": r[2]} for r in rows[:16]]}
     log("profile", **res)
     eng.run()
     return res
@@ -387,6 +555,9 @@ def main() -> int:
     secs = build.build_all()
     log("build", seconds_each=secs, wall_s=time.perf_counter() - t0,
         already_built=[n for n in build.KERNELS if n not in secs])
+    attrs = {n: build.kernel_attributes(n) for n in build.KERNELS}
+    for n, kernels in attrs.items():
+        log("build.registers", library=n, kernels=kernels)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -396,23 +567,37 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     main_res, eng, prompts = main_path(torch, get_arch, M, Engine, kmoe, kfd)
     prof = profile_waves(torch, eng, prompts, main_res["decode_ms_per_wave_median"])
+    floor_ms = event_floor_ms(torch)
+    log("timing_floor", empty_call_ms=floor_ms)
 
     kernels = []
-    for name, src, tpu, row in (
-            ("moe_gmm", "src/repro_torch/csrc/moe_gmm.cu",
+    for name, variant, src, tpu, row in (
+            ("moe_gmm", "tensor_core", "src/repro_torch/csrc/moe_gmm.cu",
              "src/repro/kernels/moe_gmm.py:50", moe["decode"]),
-            ("flash_decode", "src/repro_torch/csrc/flash_decode.cu",
+            ("flash_decode", "split_s", "src/repro_torch/csrc/flash_decode.cu",
              "src/repro/kernels/flash_decode.py:61", fd["decode"])):
+        profiled = row["profiled_ms"]
+        ratio = row["ms"] / profiled
+        log("timing_crosscheck", kernel=name, time_ms=row["ms"], profiled_ms=profiled,
+            ratio=ratio, within_15pct=abs(ratio - 1) <= 0.15,
+            main_path=prof["per_call"][name])
+        if abs(ratio - 1) > 0.15:
+            raise AssertionError(f"time_ms of {name} ({row['ms']} ms) and the "
+                                 f"profiler's span ({profiled} ms) differ by more "
+                                 f"than 15 %")
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": tpu, "launches": main_res["launches"][name],
+                        "replaces": tpu, "variant": variant,
+                        "launches": main_res["launches"][name],
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                        "profiled_ms": profiled,
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"nvidia_smi": smi, "moe_gmm": moe, "flash_decode": fd,
+        {"nvidia_smi": smi, "kernel_attributes": attrs, "moe_gmm": moe, "flash_decode": fd,
          "parity_f32_max_abs_logit_err": parity, "main_path": main_res,
+         "timing_floor_ms": floor_ms,
          "profile": prof, "kernels": kernels}, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -6,6 +6,8 @@ bfloat16 leaf is a numpy array whose ``dtype.name`` is "bfloat16"; it goes
 across bit for bit through a uint16 view. The JAX stack stores each period
 position's leaves stacked over periods (``{"periods": (...), "rem": (...)}``)
 for ``lax.scan``; the port keeps one entry per layer, in layer order.
+Like every entry point of the port, the converters put the tensors on the
+card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ from typing import Any, Callable, List
 
 import numpy as np
 import torch
+
+from repro_torch import resolve_device
 
 
 def tree_map(fn: Callable, tree: Any) -> Any:
@@ -24,12 +28,13 @@ def tree_map(fn: Callable, tree: Any) -> Any:
     return fn(tree)
 
 
-def to_torch(a: np.ndarray, device="cpu") -> torch.Tensor:
+def to_torch(a: np.ndarray, device="cuda") -> torch.Tensor:
+    dev = resolve_device(device)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(np.array(a.view(np.uint16))).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(a))
-    return t.to(device)
+    return t.to(dev)
 
 
 def unstack_layers(stack: dict, cfg) -> List[Any]:
@@ -48,7 +53,7 @@ def unstack_layers(stack: dict, cfg) -> List[Any]:
     return layers
 
 
-def params_from_jax(tree: dict, cfg, device="cpu") -> dict:
+def params_from_jax(tree: dict, cfg, device="cuda") -> dict:
     """JAX ``init_model`` params (numpy leaves) -> the port's params."""
     out = {k: tree_map(lambda a: to_torch(a, device), v)
            for k, v in tree.items() if k != "stack"}
@@ -57,7 +62,7 @@ def params_from_jax(tree: dict, cfg, device="cpu") -> dict:
     return out
 
 
-def cache_from_jax(tree: dict, cfg, device="cpu") -> List[dict]:
+def cache_from_jax(tree: dict, cfg, device="cuda") -> List[dict]:
     """JAX caches (``init_cache`` / ``prefill`` layout, numpy leaves) -> the
     port's per-layer cache list."""
     return [tree_map(lambda a: to_torch(a, device).contiguous(), layer)

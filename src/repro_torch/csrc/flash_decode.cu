@@ -1,38 +1,53 @@
-// One-token GQA decode attention over a KV cache, for Hopper.
+// One-token GQA decode attention over a KV cache, for Hopper: flash-decoding
+// with the cache split over S.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_decode.py
 // (flash_decode_pallas, body _kernel): q [B, H, hd] against k/v
 // [B, KH, S, hd] with g = H / KH query heads per KV head, scores scaled by
-// hd^-0.5, positions >= length masked, online softmax (m, l, acc) in f32,
-// normalised output [B, H, hd] in q's dtype.
+// hd^-0.5, positions >= length masked, softmax in f32, normalised output
+// [B, H, hd] in q's dtype.
 //
 // What bounds it on this card: every valid K and V row is read once,
-// 2*B*KH*len*hd elements, against ~4*B*H*len*hd flops: bytes bound it. At
-// olmoe's decode shapes (B=8, KH=16, hd=128, len ~200) that is ~13 MB, a
-// few microseconds at 3.35 TB/s, so launch latency dominates.
+// 2*B*KH*len*hd elements, against ~4*B*H*len*hd flops, so bytes bound it.
+// At olmoe's decode shapes (B=8, KH=16, hd=128, len <= 160) that is ~7 MB,
+// about 2 us at 3.35 TB/s, so the real floor is the latency of one round
+// trip to HBM plus the launch of two small kernels: a few microseconds.
 //
-// Design: the Pallas grid walks S tiles in order and carries (m, l, acc)
-// in VMEM scratch across grid steps; Hopper blocks run unordered and carry
-// nothing, so one block per (b, kv-head) loops over the S tiles itself and
-// keeps the state of its g query heads in shared memory. It stops at its
-// own slot's length, lengths[b] (an int32 [B] device tensor: the engine's
-// slots decode at different positions), so no block reads past its
-// cache's valid rows, and it masks the ragged last tile itself: any S.
-// Per tile of 64 positions: each warp takes whole K rows (coalesced) and
-// reduces the dot products with shuffles; one warp per head updates m and
-// l; then each thread owns a dimension of acc and streams V rows. Splitting
-// S across blocks (flash-decoding) is later work: at B=8, KH=16 there are
-// already 128 blocks for 132 SMs.
+// Design: the Pallas grid walks S tiles in order and carries (m, l, acc) in
+// VMEM scratch from one grid step to the next. Hopper blocks run unordered,
+// and one block walking its tiles in series puts one HBM latency per tile
+// on the critical path. So the work is split over S in two launches:
+//   1. partials, grid (B*KH, n_split), n_split = ceil(S / CHUNK) from the
+//      cache capacity alone (CHUNK = 64: 128 timed the same on the card,
+//      and 64 also fits f32 at hd 256 in shared memory) (no host read of the lengths, so the call stays
+//      asynchronous). A block whose chunk starts at or past its slot's
+//      length writes an empty partial (m = -inf, l = 0) and returns. Every
+//      other block issues all of its chunk's K and V rows at once as 16-byte
+//      cp.async copies into shared memory, computes the g x CHUNK scores in
+//      f32 while V is still in flight (a thread per score, 16-byte shared
+//      reads of the K row), masks the ragged end, takes the chunk's max m
+//      and sum l (a warp per query head), and writes the unnormalised
+//      o = sum_j p_j V_j (a thread per output element) with m and l to an
+//      f32 scratch [B, KH, n_split, g, hd | 1].
+//   2. combine, a block per (slot, query head): the lse-combine of the
+//      slot's valid splits, o = sum_c e^(m_c - M) o_c / sum_c e^(m_c - M) l_c,
+//      written in q's dtype. A slot of length 0 gets zeros. It is launched
+//      as a programmatic dependent of pass 1, so its blocks are resident
+//      and waiting (griddepcontrol.wait) when pass 1 ends, instead of
+//      paying a second launch latency after it.
+// Any g, hd <= 256, any S; rows whose bytes are not a multiple of 16 are
+// copied element by element instead.
+#include <math.h>
+
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 namespace {
 
-constexpr int BS = 64;          // positions per tile
 constexpr int NT = 128;         // threads per block
 constexpr int NW = NT / 32;     // warps per block
-constexpr int MAX_HD = 256;     // head dim limit (8 values per lane)
-constexpr float NEG_INF = -1e30f;
+constexpr int MAX_HD = 256;     // head dim limit
+constexpr int CHUNK = 64;       // cache positions per split
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -54,141 +69,264 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Elements of T in 16 bytes, and the shared-memory row of a K or V row:
+// hd padded by 16 bytes so that rows start in different banks.
+template <typename T> __host__ __device__ constexpr int epv() { return 16 / sizeof(T); }
+__host__ __device__ inline int row_pitch(int hd, int elem_bytes) {
+  return hd + 16 / elem_bytes;
+}
+
+template <typename T>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int rows, int hd,
+                                          int pitch, bool vec) {
+  if (vec) {
+    const int vpr = hd / epv<T>();                    // 16-byte pieces per row
+    for (int i = threadIdx.x; i < rows * vpr; i += NT) {
+      const int r = i / vpr, c = (i % vpr) * epv<T>();
+      cp_async16(dst + r * pitch + c, src + (size_t)r * hd + c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * hd; i += NT)
+      dst[(i / hd) * pitch + i % hd] = src[i];
+  }
+}
+
+// Dot product of a query head (f32, shared) with a K row (T, shared).
+template <typename T>
+__device__ __forceinline__ float dot_row(const float* qh, const T* kr, int hd, bool vec) {
+  float acc = 0.f;
+  if (vec) {
+    for (int c = 0; c < hd; c += epv<T>()) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(kr + c);
+      const T* kv = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int i = 0; i < epv<T>(); ++i) acc += qh[c + i] * to_f(kv[i]);
+    }
+  } else {
+    for (int d = 0; d < hd; ++d) acc += qh[d] * to_f(kr[d]);
+  }
+  return acc;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(NT)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ lengths,
-                    T* __restrict__ out, int kh, int g, int s, int hd,
-                    float scale) {
-  extern __shared__ float smem[];
-  float* qs = smem;               // [g, hd]
-  float* acc = qs + g * hd;       // [g, hd]
-  float* ps = acc + g * hd;       // [g, BS] scores, then probabilities
-  float* ms = ps + g * BS;        // [g] running max
-  float* ls = ms + g;             // [g] running sum
-  float* cs = ls + g;             // [g] correction of this tile
-
-  const int b = blockIdx.x / kh;
-  const int h = blockIdx.x % kh;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int len = min(lengths[b], s);
-  const size_t qoff = ((size_t)b * kh + h) * (size_t)g * hd;
-  const size_t kvoff = ((size_t)b * kh + h) * (size_t)s * hd;
-  const T* kb = k + kvoff;
-  const T* vb = v + kvoff;
-
-  for (int i = tid; i < g * hd; i += NT) {
-    qs[i] = to_f(q[qoff + i]);
-    acc[i] = 0.f;
+flash_decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, const int* __restrict__ lengths,
+                            float* __restrict__ o_part, float* __restrict__ m_part,
+                            float* __restrict__ l_part, int kh, int g, int s,
+                            int hd, int n_split, float scale) {
+  // let the combine's blocks be scheduled now; they wait for this grid
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int bh = blockIdx.x;                       // b * kh + kv head
+  const int c = blockIdx.y;                        // split
+  const int len = min(max(lengths[bh / kh], 0), s);
+  const int start = c * CHUNK;
+  const size_t part = (size_t)bh * n_split + c;    // [B, KH, n_split]
+  float* mp = m_part + part * g;
+  float* lp = l_part + part * g;
+  if (start >= len) {
+    for (int i = threadIdx.x; i < g; i += NT) {
+      mp[i] = -INFINITY;
+      lp[i] = 0.f;
+    }
+    return;
   }
-  for (int i = tid; i < g; i += NT) {
-    ms[i] = NEG_INF;
-    ls[i] = 0.f;
+  const int rows = min(CHUNK, len - start);
+  const int pitch = row_pitch(hd, sizeof(T));
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);          // [CHUNK, pitch]
+  T* vs = ks + CHUNK * pitch;                      // [CHUNK, pitch]
+  float* qs = reinterpret_cast<float*>(vs + CHUNK * pitch);   // [g, hd]
+  float* ps = qs + g * hd;                         // [g, CHUNK]
+
+  const bool vec = (hd * sizeof(T)) % 16 == 0;
+  const size_t kvoff = ((size_t)bh * s + start) * hd;
+  load_rows(ks, k + kvoff, rows, hd, pitch, vec);
+  cp_async_commit();
+  load_rows(vs, v + kvoff, rows, hd, pitch, vec);
+  cp_async_commit();
+  const T* qb = q + (size_t)bh * g * hd;
+  for (int i = threadIdx.x; i < g * hd; i += NT) qs[i] = to_f(qb[i]);
+  cp_async_wait<1>();                              // K has landed, V may not
+  __syncthreads();
+
+  // 1. scores, a thread per (query head, position)
+  for (int i = threadIdx.x; i < g * CHUNK; i += NT) {
+    const int gi = i / CHUNK, j = i % CHUNK;
+    ps[i] = j < rows ? dot_row(qs + gi * hd, ks + j * pitch, hd, vec) * scale
+                     : -INFINITY;
   }
   __syncthreads();
 
-  for (int s0 = 0; s0 < len; s0 += BS) {
-    // 1. scores: a warp per K row, dot products reduced with shuffles
-    for (int j = warp; j < BS; j += NW) {
-      const int pos = s0 + j;
-      if (pos < len) {
-        const T* kr = kb + (size_t)pos * hd;
-        float kreg[MAX_HD / 32];
-#pragma unroll
-        for (int i = 0; i < MAX_HD / 32; ++i) {
-          const int d = lane + 32 * i;
-          kreg[i] = d < hd ? to_f(kr[d]) : 0.f;
-        }
-        for (int gi = 0; gi < g; ++gi) {
-          float part = 0.f;
-#pragma unroll
-          for (int i = 0; i < MAX_HD / 32; ++i) {
-            const int d = lane + 32 * i;
-            if (d < hd) part += qs[gi * hd + d] * kreg[i];
-          }
-          part = warp_sum(part);
-          if (lane == 0) ps[gi * BS + j] = part * scale;
-        }
-      } else {
-        for (int gi = lane; gi < g; gi += 32) ps[gi * BS + j] = NEG_INF;
-      }
+  // 2. the chunk's max and sum, a warp per query head
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int gi = warp; gi < g; gi += NW) {
+    float* p = ps + gi * CHUNK;
+    float mx = -INFINITY;
+    for (int j = lane; j < rows; j += 32) mx = fmaxf(mx, p[j]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int j = lane; j < rows; j += 32) {
+      const float e = expf(p[j] - mx);
+      p[j] = e;
+      sum += e;
     }
-    __syncthreads();
-
-    // 2. online softmax: a warp per query head
-    for (int gi = warp; gi < g; gi += NW) {
-      float mx = NEG_INF;
-      for (int j = lane; j < BS; j += 32) mx = fmaxf(mx, ps[gi * BS + j]);
-      mx = warp_max(mx);
-      const float m_prev = ms[gi];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int j = lane; j < BS; j += 32) {
-        const float p = (s0 + j < len) ? expf(ps[gi * BS + j] - m_new) : 0.f;
-        ps[gi * BS + j] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        ls[gi] = ls[gi] * corr + sum;
-        ms[gi] = m_new;
-        cs[gi] = corr;
-      }
+    sum = warp_sum(sum);
+    if (lane == 0) {
+      mp[gi] = mx;
+      lp[gi] = sum;
     }
-    __syncthreads();
-
-    // 3. acc = acc * corr + p V: a thread per head dimension, V rows coalesced
-    const int n_here = min(BS, len - s0);
-    for (int d = tid; d < hd; d += NT) {
-      for (int gi = 0; gi < g; ++gi) acc[gi * hd + d] *= cs[gi];
-      for (int j = 0; j < n_here; ++j) {
-        const float vv = to_f(vb[(size_t)(s0 + j) * hd + d]);
-        for (int gi = 0; gi < g; ++gi) acc[gi * hd + d] += ps[gi * BS + j] * vv;
-      }
-    }
-    __syncthreads();
   }
+  cp_async_wait<0>();
+  __syncthreads();
 
-  for (int i = tid; i < g * hd; i += NT) {
-    out[qoff + i] = from_f<T>(acc[i] / fmaxf(ls[i / hd], 1e-30f));
+  // 3. unnormalised o = p V, a thread per (query head, dimension)
+  float* op = o_part + part * g * hd;
+  for (int i = threadIdx.x; i < g * hd; i += NT) {
+    const int gi = i / hd, d = i % hd;
+    const float* p = ps + gi * CHUNK;
+    float acc = 0.f;
+    for (int j = 0; j < rows; ++j) acc += p[j] * to_f(vs[j * pitch + d]);
+    op[i] = acc;
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+flash_decode_combine_kernel(const float* __restrict__ o_part,
+                            const float* __restrict__ m_part,
+                            const float* __restrict__ l_part,
+                            const int* __restrict__ lengths, T* __restrict__ out,
+                            int kh, int g, int s, int hd, int n_split) {
+  // launched early (programmatic dependent launch): wait here until the
+  // partials' grid has finished and its writes are visible
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int bhg = blockIdx.x;                      // (b * kh + kv head) * g + gi
+  const int bh = bhg / g, gi = bhg % g;
+  const int len = min(max(lengths[bh / kh], 0), s);
+  const int n_valid = (len + CHUNK - 1) / CHUNK;
+  const size_t base = (size_t)bh * n_split;
+  float mx = -INFINITY;
+  for (int c = 0; c < n_valid; ++c) mx = fmaxf(mx, m_part[(base + c) * g + gi]);
+  float den = 0.f;
+  for (int c = 0; c < n_valid; ++c)
+    den += expf(m_part[(base + c) * g + gi] - mx) * l_part[(base + c) * g + gi];
+  const float inv = n_valid ? 1.f / den : 0.f;
+  for (int d = threadIdx.x; d < hd; d += NT) {
+    float acc = 0.f;
+    for (int c = 0; c < n_valid; ++c)
+      acc += expf(m_part[(base + c) * g + gi] - mx) *
+             o_part[((base + c) * g + gi) * hd + d];
+    out[(size_t)bhg * hd + d] = from_f<T>(acc * inv);
+  }
+}
+
+template <typename T>
+size_t partial_smem(int g, int hd) {
+  return sizeof(T) * 2 * (size_t)CHUNK * row_pitch(hd, sizeof(T))
+         + sizeof(float) * ((size_t)g * hd + (size_t)g * CHUNK);
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const int* lengths,
-           void* out, int b, int kh, int g, int s, int hd, cudaStream_t st) {
-  const size_t smem = sizeof(float) * ((size_t)2 * g * hd + (size_t)g * BS + 3 * g);
+           void* out, float* o_part, float* m_part, float* l_part, int b,
+           int kh, int g, int s, int hd, cudaStream_t st) {
+  const size_t smem = partial_smem<T>(g, hd);
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_decode_partial_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
+  const int n_split = (s + CHUNK - 1) / CHUNK;
   const float scale = 1.0f / sqrtf((float)hd);
-  flash_decode_kernel<T><<<b * kh, NT, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, static_cast<T*>(out), kh, g, s, hd,
-      scale);
+  flash_decode_partial_kernel<T><<<dim3(b * kh, n_split), NT, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      lengths, o_part, m_part, l_part, kh, g, s, hd, n_split, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // the combine may launch while the partials run (it waits for them), so
+  // its launch latency hides behind their tail
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(b * kh * g);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, flash_decode_combine_kernel<T>,
+                           (const float*)o_part, (const float*)m_part,
+                           (const float*)l_part, lengths, static_cast<T*>(out),
+                           kh, g, s, hd, n_split);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
+
+struct KernelEntry {
+  const char* name;
+  const void* fn;
+};
+
+const KernelEntry kKernels[] = {
+    {"flash_decode_partial<f32>", (const void*)flash_decode_partial_kernel<float>},
+    {"flash_decode_partial<bf16>", (const void*)flash_decode_partial_kernel<__nv_bfloat16>},
+    {"flash_decode_combine<f32>", (const void*)flash_decode_combine_kernel<float>},
+    {"flash_decode_combine<bf16>", (const void*)flash_decode_combine_kernel<__nv_bfloat16>},
+};
 
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. lengths: int32 [B] on the device.
-// Returns cudaGetLastError() after the launch (0 on success).
+// o_part, m_part, l_part: f32 scratch [B, KH, ceil(S / 64), g, hd | 1 | 1].
+// k and v start on a 16-byte boundary. Returns cudaGetLastError() after the
+// two launches (0 on success).
 int flash_decode_launch(const void* q, const void* k, const void* v,
-                        const void* lengths, void* out, int b, int kh, int g,
+                        const void* lengths, void* out, void* o_part,
+                        void* m_part, void* l_part, int b, int kh, int g,
                         int s, int hd, int dtype, void* stream) {
-  if (hd > MAX_HD) return cudaErrorInvalidValue;
+  if (hd > MAX_HD || hd <= 0 || s <= 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
-  if (dtype == 0) return launch<float>(q, k, v, len, out, b, kh, g, s, hd, st);
+  float* op = static_cast<float*>(o_part);
+  float* mp = static_cast<float*>(m_part);
+  float* lp = static_cast<float*>(l_part);
+  if (dtype == 0)
+    return launch<float>(q, k, v, len, out, op, mp, lp, b, kh, g, s, hd, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, len, out, b, kh, g, s, hd, st);
+    return launch<__nv_bfloat16>(q, k, v, len, out, op, mp, lp, b, kh, g, s, hd, st);
   return cudaErrorInvalidValue;
+}
+
+// The library's kernels: their number, and each one's name, registers per
+// thread and local memory per thread in bytes (spills and stack).
+int kernel_count() { return sizeof(kKernels) / sizeof(kKernels[0]); }
+
+int kernel_attributes(int i, const char** name, int* regs, int* local_bytes) {
+  if (i < 0 || i >= kernel_count()) return cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kKernels[i].fn);
+  if (err != cudaSuccess) return err;
+  *name = kKernels[i].name;
+  *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  return 0;
 }
 
 const char* kernel_error_string(int err) {

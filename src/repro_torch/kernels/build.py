@@ -6,6 +6,9 @@ build takes seconds). Libraries go to ``src/repro_torch/_build/`` (listed
 in .gitignore), named by a hash of their source, and are built at first
 use: a checkout holding only the sources builds everything it runs.
 ``build_all`` compiles every missing library at once, one nvcc per source.
+Each library also exports ``kernel_count`` and ``kernel_attributes``, which
+``kernel_attributes`` here reads: every kernel's registers and local
+(spilled) bytes per thread, as the card's loader reports them.
 """
 from __future__ import annotations
 
@@ -86,6 +89,25 @@ def library(name: str) -> ctypes.CDLL:
         lib.kernel_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
     return lib
+
+
+def kernel_attributes(name: str) -> Dict[str, dict]:
+    """{kernel: {"regs": registers per thread, "local_bytes": local memory
+    per thread (spills and stack)}} for every kernel of one library; needs
+    the card."""
+    lib = library(name)
+    if lib.kernel_attributes.argtypes is None:
+        lib.kernel_attributes.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_char_p),
+                                          ctypes.POINTER(ctypes.c_int),
+                                          ctypes.POINTER(ctypes.c_int)]
+        lib.kernel_attributes.restype = ctypes.c_int
+    out = {}
+    for i in range(lib.kernel_count()):
+        kname, regs, local = ctypes.c_char_p(), ctypes.c_int(), ctypes.c_int()
+        check(lib.kernel_attributes(i, ctypes.byref(kname), ctypes.byref(regs),
+                                    ctypes.byref(local)), name)
+        out[kname.value.decode()] = {"regs": regs.value, "local_bytes": local.value}
+    return out
 
 
 def check(status: int, name: str) -> None:

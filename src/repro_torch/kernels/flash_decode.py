@@ -3,13 +3,18 @@ the port of the Pallas kernel ``repro.kernels.flash_decode.flash_decode_pallas``
 
 ``flash_decode_cuda`` checks its tensors, turns ``length`` into an int32
 [B] device tensor (one valid length per slot; a scalar broadcasts),
-allocates the output and launches on the current stream. Its plain version
+allocates the output and the f32 scratch of the split partials, and
+launches the two kernels (partials over ``n_split(S)`` chunks of the cache,
+then their combine) on the current stream. The grid is sized from S, the
+cache capacity, so nothing reads the lengths on the host. Its plain version
 is ``ref.flash_decode_ref``; ``ops.flash_decode`` picks between them by
-device. ``launches`` counts the kernel launches of this process.
+device. ``launches`` counts the wrapper's calls that launched (each call is
+two kernel launches).
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -18,16 +23,29 @@ from repro_torch.kernels import build
 NAME = "flash_decode"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HD = 256
+CHUNK = 64          # cache positions per split, as in the CUDA source
 launches = 0
 
 
 def _lib():
     lib = build.library(NAME)
     if lib.flash_decode_launch.argtypes is None:
-        lib.flash_decode_launch.argtypes = [ctypes.c_void_p] * 5 \
+        lib.flash_decode_launch.argtypes = [ctypes.c_void_p] * 8 \
             + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.flash_decode_launch.restype = ctypes.c_int
     return lib
+
+
+def n_split(s: int) -> int:
+    """Splits of a cache of capacity `s`: ceil(s / CHUNK), at least one."""
+    return max(1, -(-s // CHUNK))
+
+
+def scratch_shapes(b: int, kh: int, g: int, s: int, hd: int) -> dict:
+    """Shapes of the f32 partials that pass 1 writes and pass 2 combines:
+    the unnormalised output o, the chunk max m and the chunk sum l."""
+    n = n_split(s)
+    return {"o": (b, kh, n, g, hd), "m": (b, kh, n, g, 1), "l": (b, kh, n, g, 1)}
 
 
 def lengths_tensor(length, batch: int, device) -> torch.Tensor:
@@ -51,31 +69,41 @@ def _check(q, k, v):
                          f"k/v {tuple(k.shape)}")
     if hd > MAX_HD:
         raise ValueError(f"flash_decode: head dim {hd} > {MAX_HD}")
+    if not all(a.is_contiguous() for a in (q, k, v)):
+        raise ValueError("flash_decode: tensors must be contiguous")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:   # K/V rows go in 16-byte copies
+        raise ValueError("flash_decode: k and v must start on a 16-byte boundary")
     for a in (q, k, v):
         if a.device.type != "cuda" or a.device != q.device:
             raise ValueError("flash_decode: q, k, v must be on one CUDA device")
         if a.dtype != q.dtype:
             raise ValueError("flash_decode: q, k, v must share one dtype")
-        if not a.is_contiguous():
-            raise ValueError("flash_decode: tensors must be contiguous")
     if q.dtype not in DTYPES:
         raise ValueError(f"flash_decode: dtype {q.dtype} not supported")
     return b, h, kh, s, hd
 
 
 def flash_decode_cuda(q, k, v, length):
-    """q: [B, H, hd]; k/v: [B, KH, S, hd]; length: int, 0-d or [B] int
-    tensor of valid positions per slot. Returns [B, H, hd] in q's dtype."""
+    """q: [B, H, hd]; k/v: [B, KH, S, hd], contiguous, k and v starting on
+    a 16-byte boundary; length: int, 0-d or [B] int tensor of valid
+    positions per slot. Returns [B, H, hd] in q's dtype."""
     global launches
     b, h, kh, s, hd = _check(q, k, v)
     lengths = lengths_tensor(length, b, q.device)
     lib = _lib()
+    shapes = scratch_shapes(b, kh, h // kh, s, hd)
+    sizes = [math.prod(shapes[n]) for n in ("o", "m", "l")]
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)
+        part = torch.empty(sum(sizes), dtype=torch.float32, device=q.device)
+        o_ptr = part.data_ptr()
+        m_ptr = o_ptr + 4 * sizes[0]
+        l_ptr = m_ptr + 4 * sizes[1]
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = lib.flash_decode_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), b, kh, h // kh, s, hd, DTYPES[q.dtype], stream)
+            out.data_ptr(), o_ptr, m_ptr, l_ptr, b, kh, h // kh, s, hd,
+            DTYPES[q.dtype], stream)
     build.check(status, NAME)
     launches += 1
     return out

@@ -2,9 +2,20 @@
 the port of the Pallas kernel ``repro.kernels.moe_gmm.moe_gmm_pallas``.
 
 ``moe_gmm_cuda`` checks its tensors, allocates the output and the h
-scratch, and launches the two-pass kernel on the current stream. Its
-plain version is ``ref.moe_gmm_ref``; ``ops.moe_gmm`` picks between them by
-device. ``launches`` counts the kernel launches of this process.
+scratch, and launches one of two variants of the two-pass kernel on the
+current stream, chosen by ``variant(dtype, d, f)`` from the dtype and the
+shape alone, never on failure:
+
+- ``"tensor_core"``: bfloat16 with D and F multiples of 8 (the 16-byte
+  copies' alignment; every config in ``repro_torch.configs`` meets it).
+  The weights are the MMA's rows and the tokens its columns, so each
+  weight is read once for any T <= 256 (``tile_plan``).
+- ``"cuda_core"``: everything else, float32 above all, where the f32 sums
+  must not pass through TF32 tensor cores.
+
+Its plain version is ``ref.moe_gmm_ref``; ``ops.moe_gmm`` picks between
+them by device. ``variant_launches`` counts each variant's launched calls
+and ``launches`` their total, in this process.
 """
 from __future__ import annotations
 
@@ -16,7 +27,10 @@ from repro_torch.kernels import build
 
 NAME = "moe_gmm"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+VARIANTS = ("tensor_core", "cuda_core")
+TC_MAX_N = 256          # tokens one tensor-core block holds
 launches = 0
+variant_launches = dict.fromkeys(VARIANTS, 0)
 
 
 def _lib():
@@ -25,7 +39,31 @@ def _lib():
         lib.moe_gmm_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         lib.moe_gmm_launch.restype = ctypes.c_int
+        lib.moe_gmm_tc_launch.argtypes = [ctypes.c_void_p] * 6 \
+            + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.moe_gmm_tc_launch.restype = ctypes.c_int
     return lib
+
+
+def variant(dtype, d: int, f: int) -> str:
+    """The kernel variant for x's dtype and the widths D and F: the
+    tensor-core kernel for bfloat16 when D and F are multiples of 8, else
+    the CUDA-core kernel."""
+    if dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0:
+        return "tensor_core"
+    return "cuda_core"
+
+
+def tile_plan(t: int):
+    """(nf, mt, n_tiles) of the tensor-core kernel for T tokens: a block
+    holds N = 8*nf tokens, nf the power of two that covers min(T, 256), and
+    mt weight columns (64 at nf = 32, where 128 would not fit the
+    registers); n_tiles = ceil(T / N) blocks share each weight tile, so the
+    weights stream once for T <= 256."""
+    nf = 1
+    while 8 * nf < min(t, TC_MAX_N):
+        nf *= 2
+    return nf, (64 if nf == 32 else 128), -(-t // (8 * nf))
 
 
 def _check(x, w_gate, w_up, w_down):
@@ -55,17 +93,32 @@ def _check(x, w_gate, w_up, w_down):
 
 def moe_gmm_cuda(x, w_gate, w_up, w_down):
     """x: [E, T, D]; w_gate/w_up: [E, D, F]; w_down: [E, F, D] -> [E, T, D],
-    all on one CUDA device, float32 or bfloat16, any T, D and F."""
+    all on one CUDA device, float32 or bfloat16, any T, D and F. The
+    variant is ``variant(x.dtype, D, F)``; an error of either raises."""
     global launches
     e, t, d, f = _check(x, w_gate, w_up, w_down)
+    which = variant(x.dtype, d, f)
     lib = _lib()
     with torch.cuda.device(x.device):
         h = torch.empty((e, t, f), dtype=x.dtype, device=x.device)
         out = torch.empty((e, t, d), dtype=x.dtype, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        status = lib.moe_gmm_launch(
-            x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
-            h.data_ptr(), out.data_ptr(), e, t, d, f, DTYPES[x.dtype], stream)
+        ptrs = (x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
+                w_down.data_ptr(), h.data_ptr(), out.data_ptr())
+        if which == "tensor_core":
+            nf, mt, _ = tile_plan(t)
+            status = lib.moe_gmm_tc_launch(*ptrs, e, t, d, f, nf, mt, stream)
+        else:
+            status = lib.moe_gmm_launch(*ptrs, e, t, d, f, DTYPES[x.dtype], stream)
     build.check(status, NAME)
     launches += 1
+    variant_launches[which] += 1
     return out
+
+
+def reset_counts() -> None:
+    """Set every launch counter of this wrapper to 0."""
+    global launches
+    launches = 0
+    for key in variant_launches:
+        variant_launches[key] = 0

@@ -62,3 +62,19 @@ def test_default_device_raises_without_a_card(monkeypatch):
                  lambda: M.init_cache(cfg, batch=1, seq=4)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_converter_defaults_to_the_card(monkeypatch):
+    """The weight converter, like every other entry point, puts tensors on
+    the card by default, so without one it raises instead of using the CPU."""
+    import numpy as np
+
+    from repro_torch import convert
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tree = {"w": np.ones((2, 3), np.float32)}
+    for call in (lambda: convert.to_torch(tree["w"]),
+                 lambda: convert.tree_map(convert.to_torch, tree)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert convert.to_torch(tree["w"], "cpu").device.type == "cpu"

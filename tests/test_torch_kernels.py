@@ -197,3 +197,66 @@ def test_lengths_tensor_shapes():
     assert tfd.lengths_tensor(torch.tensor(2), 2, "cpu").dtype == torch.int32
     with pytest.raises(ValueError):
         tfd.lengths_tensor(torch.tensor([1, 2]), 3, "cpu")
+
+
+# ---------------------------------------------------------------------------
+# host-side rules of the CUDA wrappers (pure Python, no card needed)
+# ---------------------------------------------------------------------------
+
+def test_moe_gmm_variant_rule():
+    """bf16 with D and F multiples of 8 takes the tensor-core kernel, every
+    config of the port among them; f32 and odd widths the CUDA-core one."""
+    from repro_torch.configs import ARCHS, reduced_config
+    for name, cfg in ARCHS.items():
+        if cfg.moe is None:
+            continue
+        for c in (cfg, reduced_config(cfg)):
+            d, f = c.d_model, c.moe.d_expert
+            assert tmg.variant(torch.bfloat16, d, f) == "tensor_core", name
+            assert tmg.variant(torch.float32, d, f) == "cuda_core", name
+    assert tmg.variant(torch.bfloat16, 2048, 1024) == "tensor_core"
+    assert tmg.variant(torch.bfloat16, 2048, 1000) == "tensor_core"  # F % 128 != 0
+    for d, f in ((32, 130), (40, 7), (64, 300), (2048, 1004), (36, 128)):
+        assert tmg.variant(torch.bfloat16, d, f) == "cuda_core", (d, f)
+    assert tmg.variant(torch.float32, 256, 128) == "cuda_core"
+
+
+@pytest.mark.parametrize("t,plan", [(1, (1, 128, 1)), (8, (1, 128, 1)),
+                                    (9, (2, 128, 1)), (24, (4, 128, 1)),
+                                    (100, (16, 128, 1)), (128, (16, 128, 1)),
+                                    (129, (32, 64, 1)), (256, (32, 64, 1)),
+                                    (257, (32, 64, 2)), (1000, (32, 64, 4))])
+def test_moe_gmm_tile_plan(t, plan):
+    """One block holds every token up to 256, so each weight streams once;
+    past that, ceil(T / 256) token tiles."""
+    nf, mt, n_tiles = tmg.tile_plan(t)
+    assert (nf, mt, n_tiles) == plan
+    assert 8 * nf * n_tiles >= t and (n_tiles == 1) == (t <= tmg.TC_MAX_N)
+
+
+@pytest.mark.parametrize("s,n", [(1, 1), (63, 1), (64, 1), (65, 2), (500, 8),
+                                 (512, 8)])
+def test_flash_decode_n_split(s, n):
+    assert tfd.CHUNK == 64
+    assert tfd.n_split(s) == n
+
+
+def test_flash_decode_scratch_shapes():
+    shapes = tfd.scratch_shapes(8, 16, 1, 512, 128)
+    assert shapes == {"o": (8, 16, 8, 1, 128), "m": (8, 16, 8, 1, 1),
+                      "l": (8, 16, 8, 1, 1)}
+    shapes = tfd.scratch_shapes(3, 2, 4, 203, 64)
+    assert shapes["o"] == (3, 2, 4, 4, 64) and shapes["m"] == shapes["l"] == (3, 2, 4, 4, 1)
+
+
+def test_flash_decode_rejects_misaligned_kv():
+    """K and V rows go in 16-byte copies: a contiguous view that does not
+    start on a 16-byte boundary is refused before anything launches."""
+    q = torch.zeros((2, 4, 8), dtype=torch.bfloat16)
+    k = torch.zeros(2 * 2 * 12 * 8 + 1, dtype=torch.bfloat16)[1:].view(2, 2, 12, 8)
+    assert k.is_contiguous() and k.data_ptr() % 16
+    for kv in ((k, k.clone()), (k.clone(), k)):
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            tfd.flash_decode_cuda(q, *kv, 5)
+    with pytest.raises(ValueError, match="CUDA device"):   # aligned: only the device
+        tfd.flash_decode_cuda(q, k.clone(), k.clone(), 5)

@@ -53,7 +53,7 @@ def cfg_pair(topk=None, cf=None, **overrides):
 def models(seed=0, **kw):
     jcfg, tcfg = cfg_pair(**kw)
     jp, _ = JM.init_model(jcfg, JPLAN, jax.random.PRNGKey(seed))
-    tp = convert.params_from_jax(jax.tree.map(np.asarray, jp), tcfg)
+    tp = convert.params_from_jax(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
     return jcfg, tcfg, jp, tp, jax.tree.map(lambda a: a[0], jp["stack"]["periods"][0])
 
 
@@ -89,7 +89,8 @@ def test_apply_rope(per_row):
 def test_dense_ffn():
     jcfg, tcfg = cfg_pair()
     jp, _ = JC.init_dense_ffn(jcfg, JPLAN, jax.random.PRNGKey(3))
-    tp = convert.tree_map(convert.to_torch, jax.tree.map(np.asarray, jp))
+    tp = convert.tree_map(lambda a: convert.to_torch(a, "cpu"),
+                         jax.tree.map(np.asarray, jp))
     x = rand(4, 2, 3, 64)
     close(TC.dense_ffn(tp, torch.from_numpy(x), PLAN, DIST),
           JC.dense_ffn(jp, jnp.asarray(x), JPLAN, JDIST))

@@ -51,7 +51,7 @@ def models(dtype="float32", topk=None, seed=0):
         cfgs.append(cfg)
     jcfg, tcfg = cfgs
     jp, _ = JM.init_model(jcfg, jax_null_plan("decode"), jax.random.PRNGKey(seed))
-    tp = convert.params_from_jax(jax.tree.map(np.asarray, jp), tcfg)
+    tp = convert.params_from_jax(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
     return jcfg, tcfg, jp, tp
 
 
@@ -99,7 +99,7 @@ def test_convert_round_trips_params_and_caches_bf16():
 
     tokens = jnp.asarray([[3, 5, 7, 11]], jnp.int32)
     _, jc = JM.prefill(jp, {"tokens": tokens}, jcfg, jax_null_plan("prefill"), JDIST)
-    tc = convert.cache_from_jax(jax.tree.map(np.asarray, jc), tcfg)
+    tc = convert.cache_from_jax(jax.tree.map(np.asarray, jc), tcfg, device="cpu")
     jl = convert.unstack_layers(jax.tree.map(np.asarray, jc), tcfg)
     assert tc[0]["mixer"]["k"].shape == (1, tcfg.num_kv_heads, 4, tcfg.head_dim)
     for want, got in zip(jax.tree.leaves(jl), jax.tree.leaves(tc)):
