@@ -9,11 +9,12 @@ Phases, each printing its own lines before the last:
      one process per source, all at once; each kernel's registers and local
      (spilled) bytes per thread;
   3. kernels against their plain PyTorch versions on the card, at the main
-     path's shapes (olmoe-1b-7b) and at edge shapes, with device times
+     paths' shapes (olmoe-1b-7b, starcoder2-3b, granite-moe-3b-a800m,
+     gemma3-1b's ring and full caches) and at edge shapes, with device times
      (``time_ms``: the host's enqueue cost kept out), bounds and library
      yardsticks;
-  4. float32 parity: full width, 2 layers, the card's path (kernels) against
-     the port's plain CPU path on the same weights;
+  4. float32 parity: olmoe-1b-7b at full width and 2 layers, the card's
+     path (kernels) against the port's plain CPU path on the same weights;
   5. main path: full olmoe-1b-7b (16 layers, bf16, random weights from seed
      0) served by ``Engine(max_batch=8, max_seq=512)``: 16 requests of 16-128
      prompt tokens and 32 new tokens; the kernels' launch counters must show
@@ -22,11 +23,24 @@ Phases, each printing its own lines before the last:
   6. where a decode wave's device time goes (torch.profiler), with each
      kernel's span per call there. Each kernel's ``time_ms`` must agree
      within 15 % with the profiler's span of its calls, queued the same
-     way behind the same spin (``profiled_ms``).
-Then one JSON line of per-kernel numbers, and as the last line
-``{"ok": true, "device": {...}}``. Any failed check raises, and the script
-exits non-zero; without a CUDA device it exits non-zero before printing a
-result. Results also go to ``chiprun_out/chip_smoke.json``.
+     way behind the same spin (``profiled_ms``);
+  7. ``dbo``: full olmoe-1b-7b, two microbatches of 4; the DBO step must be
+     bitwise equal to two plain decode steps (tokens and caches), and its
+     device time is logged beside theirs;
+  8. ``specdec``: speculative decoding on full olmoe-1b-7b (4 rows) and full
+     gemma3-1b (1 row, past position 1024, so the rolled-back rings wrap),
+     with untrained heads and with an oracle draft, each equal to greedy;
+  9. ``main_path.<arch>``: starcoder2-3b, granite-moe-3b-a800m and gemma3-1b
+     at full width and depth, bf16, through the same engine (gemma3 with one
+     request from position 1000 to past 1024), each with its profile;
+ 10. float32 parity of gemma3-1b at full width and 6 layers (one period:
+     five ring layers and a global one), a prompt past the window.
+Every path sets the launch counters to 0 just before it and reads them
+just after; ``flash_decode`` must run on every path and ``moe_gmm`` on
+every MoE path. Then one JSON line of per-kernel numbers, and as the last
+line ``{"ok": true, "device": {...}}``. Any failed check raises, and the
+script exits non-zero; without a CUDA device it exits non-zero before
+printing a result. Results also go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -222,16 +236,23 @@ def check_moe_gmm(torch, ref, kmoe, gen):
 
     results = {}
     prefill_t = math.ceil(128 * 8 * 1.5 / 64)
-    cases = [("decode", 64, 8, 2048, 1024, "bfloat16"),
-             ("prefill", 64, prefill_t, 2048, 1024, "bfloat16"),
-             ("decode_f32", 64, 8, 2048, 1024, "float32"),
-             ("tc_one_token", 4, 1, 2048, 1024, "bfloat16"),
-             ("tc_t100", 4, 100, 2048, 1024, "bfloat16"),
-             ("tc_t257", 2, 257, 2048, 1024, "bfloat16"),
-             ("unaligned_f32", 8, 100, 2048, 1000, "float32"),
-             ("unaligned_bf16", 8, 13, 2048, 1000, "bfloat16"),
-             ("odd_f_bf16", 4, 24, 2048, 1004, "bfloat16")]
-    for name, e, t, d, f, dt in cases:
+    # (name, E, T, D, F, dtype, timed): olmoe-1b-7b's decode (8 slots x
+    # capacity 1) and 128-token prefill, edge shapes, granite-moe-3b-a800m's
+    # decode and 128-token prefill (ceil(128 * 8 * 1.5 / 40) = 39)
+    cases = [("decode", 64, 8, 2048, 1024, "bfloat16", True),
+             ("prefill", 64, prefill_t, 2048, 1024, "bfloat16", True),
+             ("decode_f32", 64, 8, 2048, 1024, "float32", True),
+             ("tc_one_token", 4, 1, 2048, 1024, "bfloat16", False),
+             ("tc_t100", 4, 100, 2048, 1024, "bfloat16", False),
+             ("tc_t257", 2, 257, 2048, 1024, "bfloat16", False),
+             ("unaligned_f32", 8, 100, 2048, 1000, "float32", False),
+             ("unaligned_bf16", 8, 13, 2048, 1000, "bfloat16", False),
+             ("odd_f_bf16", 4, 24, 2048, 1004, "bfloat16", False),
+             ("granite_decode", 40, 8, 1536, 512, "bfloat16", True),
+             ("granite_decode_f32", 40, 8, 1536, 512, "float32", False),
+             ("granite_prefill", 40, math.ceil(128 * 8 * 1.5 / 40), 1536, 512,
+              "bfloat16", False)]
+    for name, e, t, d, f, dt, timed in cases:
         full = inputs(e, t, d, f)
         args = [a.to(getattr(torch, dt)) for a in full]
         which = kmoe.variant(args[0].dtype, d, f)
@@ -256,7 +277,7 @@ def check_moe_gmm(torch, ref, kmoe, gen):
                "max_abs_err": err, "err_vs_f32_truth": err_truth, "rule": rule}
         if which == "tensor_core":
             row["tile_plan"] = dict(zip(("nf", "mt", "n_tiles"), kmoe.tile_plan(t)))
-        if name in ("decode", "prefill", "decode_f32"):
+        if timed:
             el = 2 if dt == "bfloat16" else 4
             spin = []
             row["ms"] = time_ms(torch, lambda: kmoe.moe_gmm_cuda(*args), spin=spin)
@@ -275,15 +296,31 @@ def check_moe_gmm(torch, ref, kmoe, gen):
 
 
 def check_flash_decode(torch, F, ref, kfd, gen):
-    B, H, hd = 8, 16, 128
+    B = 8
     results = {}
     edges = [0, 1, 63, 64, 65, 128, 200, 500]        # chunk boundaries, 0, S
-    cases = [("decode", 16, 512, [17, 49, 64, 65, 100, 128, 150, 160], "bfloat16"),
-             ("ragged_S", 16, 500, [1, 37, 63, 64, 65, 200, 333, 500], "bfloat16"),
-             ("ragged_S_f32", 16, 500, [1, 37, 63, 64, 65, 200, 333, 500], "float32"),
-             ("gqa4_edges", 4, 500, edges, "bfloat16"),
-             ("gqa4_edges_f32", 4, 500, edges, "float32")]
-    for name, KH, S, lens, dt in cases:
+    decode = [17, 49, 64, 65, 100, 128, 150, 160]
+    ring = [1, 64, 500, 1000, 1024, 1024, 1024, 1024]    # min(pos + 1, W)
+    # (name, H, KH, hd, S, lengths, dtype, timed): olmoe-1b-7b's decode and
+    # edge cases; starcoder2-3b (g = 12), granite-moe-3b-a800m (g = 3,
+    # hd 64) and gemma3-1b (g = 4, hd 256, KH 1) over its window-1024 ring
+    # and over a full cache
+    cases = [("decode", 16, 16, 128, 512, decode, "bfloat16", True),
+             ("ragged_S", 16, 16, 128, 500, [1, 37, 63, 64, 65, 200, 333, 500],
+              "bfloat16", False),
+             ("ragged_S_f32", 16, 16, 128, 500, [1, 37, 63, 64, 65, 200, 333, 500],
+              "float32", False),
+             ("gqa4_edges", 16, 4, 128, 500, edges, "bfloat16", False),
+             ("gqa4_edges_f32", 16, 4, 128, 500, edges, "float32", False),
+             ("starcoder2_g12", 24, 2, 128, 512, decode, "bfloat16", True),
+             ("starcoder2_g12_f32", 24, 2, 128, 500, edges, "float32", False),
+             ("granite_g3_hd64", 24, 8, 64, 512, decode, "bfloat16", True),
+             ("granite_g3_hd64_f32", 24, 8, 64, 500, edges, "float32", False),
+             ("gemma3_ring", 4, 1, 256, 1024, ring, "bfloat16", True),
+             ("gemma3_ring_f32", 4, 1, 256, 1024, ring, "float32", False),
+             ("gemma3_global", 4, 1, 256, 1152, [17, 49, 64, 65, 100, 128, 1040, 1152],
+              "bfloat16", False)]
+    for name, H, KH, hd, S, lens, dt, timed in cases:
         tdt = getattr(torch, dt)
         q = torch.randn((B, H, hd), generator=gen, device="cuda").to(tdt)
         k = torch.randn((B, KH, S, hd), generator=gen, device="cuda").to(tdt)
@@ -309,7 +346,7 @@ def check_flash_decode(torch, F, ref, kfd, gen):
             raise AssertionError(f"flash_decode {name}: err {err} fails {rule} "
                                  f"(or a length-0 slot is not 0)")
         row["max_abs_err"], row["rule"] = err, rule
-        if name == "decode":
+        if timed:
             mask = (torch.arange(S, device="cuda")[None, :] < lengths[:, None])
             mask = mask[:, None, None, :]
 
@@ -322,9 +359,10 @@ def check_flash_decode(torch, F, ref, kfd, gen):
             spin = []
             row["ms"] = time_ms(
                 torch, lambda: kfd.flash_decode_cuda(q, k, v, lengths), spin=spin)
-            row["profiled_ms"] = profiled_ms(
-                torch, lambda: kfd.flash_decode_cuda(q, k, v, lengths), "flash_decode",
-                spin[0])
+            if name == "decode":
+                row["profiled_ms"] = profiled_ms(
+                    torch, lambda: kfd.flash_decode_cuda(q, k, v, lengths),
+                    "flash_decode", spin[0])
             row["plain_ms"] = time_ms(torch, lambda: ref.flash_decode_ref(q, k, v, lengths))
             row["library_ms"] = time_ms(torch, library)
             n = sum(lens)
@@ -339,15 +377,20 @@ def check_flash_decode(torch, F, ref, kfd, gen):
 # phase 4: float32 parity, card vs CPU, full width, 2 layers
 # ---------------------------------------------------------------------------
 
-def parity_f32(torch, get_arch, M, kvcache, convert):
+def parity_f32(torch, get_arch, M, kvcache, convert, arch="olmoe-1b-7b",
+               layers=2, lens=(16, 40, 27), seq=64, steps=4):
+    """The card's path against the port's CPU path on the same float32
+    weights: `arch` at its published widths cut to `layers` layers, prompts
+    of `lens` tokens in a cache of `seq` positions, `steps` decode steps."""
     import numpy as np
     tol = 1e-3
-    cfg = get_arch("olmoe-1b-7b").replace(num_layers=2, dtype="float32")
+    cfg = get_arch(arch).replace(num_layers=layers, dtype="float32")
+    t0 = time.perf_counter()
     p_cpu = M.init_model(cfg, device="cpu", seed=SEED)
     p_gpu = convert.tree_map(lambda t: t.to("cuda"), p_cpu)
+    init_s = time.perf_counter() - t0
     rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (16, 40, 27)]
-    seq, steps = 64, 4
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in lens]
 
     def run(params, device, feed=None):
         caches = M.init_cache(cfg, batch=len(prompts), seq=seq, device=device)
@@ -381,8 +424,10 @@ def parity_f32(torch, get_arch, M, kvcache, convert):
                                  "top-2 margin exceeds the tolerance")
     if worst > tol:
         raise AssertionError(f"f32 parity: logits differ by {worst} > {tol}")
-    log("parity_f32", layers=2, width=cfg.d_model, max_abs_logit_err=worst,
-        tol=tol, tokens_checked=n_checked, seconds=time.perf_counter() - t0)
+    log("parity_f32", arch=arch, layers=layers, width=cfg.d_model,
+        prompt_lens=list(lens), seq=seq, decode_steps=steps, max_abs_logit_err=worst,
+        tol=tol, tokens_checked=n_checked, init_s=init_s,
+        seconds=time.perf_counter() - t0)
     del p_cpu, p_gpu
     torch.cuda.empty_cache()
     return worst
@@ -392,7 +437,23 @@ def parity_f32(torch, get_arch, M, kvcache, convert):
 # phase 5: the main path
 # ---------------------------------------------------------------------------
 
-def main_path(torch, get_arch, M, Engine, kmoe, kfd):
+def reset_counts(kmoe, kfd):
+    kmoe.reset_counts()
+    kfd.launches = 0
+
+
+def read_counts(kmoe, kfd):
+    return {"moe_gmm": kmoe.launches, "flash_decode": kfd.launches}
+
+
+def main_path(torch, get_arch, M, Engine, kmoe, kfd, arch="olmoe-1b-7b",
+              lens=None, new_tokens=32, max_seq=512, n_requests=16):
+    """`arch` at its published widths and depth, bf16, random weights from
+    SEED, served by ``Engine(max_batch=8, max_seq)``: `n_requests` requests
+    of 16-128 prompt tokens (or `lens`) and `new_tokens` new tokens each.
+    The launch counters are set to 0 just before the run and read just
+    after: `flash_decode` once per layer and wave; `moe_gmm` once per MoE
+    layer and wave and per prefill, in its tensor-core variant only."""
     import numpy as np
 
     class TimedEngine(Engine):
@@ -421,7 +482,7 @@ def main_path(torch, get_arch, M, Engine, kmoe, kfd):
                 self.wave_s.append(t2 - t1)
             return n
 
-    cfg = get_arch("olmoe-1b-7b")
+    cfg = get_arch(arch)
     t0 = time.perf_counter()
     params = M.init_model(cfg, device="cuda", seed=SEED)
     torch.cuda.synchronize()
@@ -429,62 +490,69 @@ def main_path(torch, get_arch, M, Engine, kmoe, kfd):
     n_params = sum(t.numel() for layer in params["stack"] for g in layer.values()
                    for t in g.values()) + sum(t.numel() for t in params["embed"].values())
     rng = np.random.default_rng(SEED)
-    lens = rng.integers(16, 129, 16).tolist()
+    if lens is None:
+        lens = rng.integers(16, 129, n_requests).tolist()
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in lens]
-    new_tokens = 32
 
-    eng = TimedEngine(cfg, params, max_batch=8, max_seq=512, eos_id=-1)
+    eng = TimedEngine(cfg, params, max_batch=8, max_seq=max_seq, eos_id=-1)
     for p in prompts:
         eng.submit(p, max_new_tokens=new_tokens)
     torch.cuda.reset_peak_memory_stats()
-    kmoe.reset_counts()
-    kfd.launches = 0
+    reset_counts(kmoe, kfd)
     t0 = time.perf_counter()
     out = eng.run()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = {"moe_gmm": kmoe.launches, "flash_decode": kfd.launches}
+    launches = read_counts(kmoe, kfd)
     variants = dict(kmoe.variant_launches)
 
     waves, L = len(eng.wave_s), cfg.num_layers
-    if sorted(out) != list(range(16)):
-        raise AssertionError(f"requests not completed: {sorted(out)}")
+    L_moe = sum(s.ffn == "moe" for s in cfg.layer_specs)
+    if sorted(out) != list(range(len(prompts))):
+        raise AssertionError(f"{arch}: requests not completed: {sorted(out)}")
     for rid, toks in out.items():
-        if len(toks) != new_tokens + 1 or not all(0 <= t < cfg.vocab_size for t in toks):
-            raise AssertionError(f"request {rid}: bad output {toks}")
+        want = min(new_tokens, max_seq - 1 - lens[rid]) + 1
+        if len(toks) != want or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"{arch} request {rid}: bad output {toks}")
     if launches["flash_decode"] != L * waves:
-        raise AssertionError(f"flash_decode launched {launches['flash_decode']} "
-                             f"times, want {L} per wave x {waves} waves")
-    if launches["moe_gmm"] != L * (waves + eng.prefills) or \
+        raise AssertionError(f"{arch}: flash_decode launched "
+                             f"{launches['flash_decode']} times, want {L} per "
+                             f"wave x {waves} waves")
+    if launches["moe_gmm"] != L_moe * (waves + eng.prefills) or \
             variants != {"tensor_core": launches["moe_gmm"], "cuda_core": 0}:
-        raise AssertionError(f"moe_gmm launched {variants}, want the tensor-core "
-                             f"variant {L} times per wave and per prefill, only")
+        raise AssertionError(f"{arch}: moe_gmm launched {variants}, want the "
+                             f"tensor-core variant {L_moe} times per wave and "
+                             f"per prefill, only")
     for layer in eng.caches:
         if not torch.isfinite(layer["mixer"]["k"]).all():
-            raise AssertionError("non-finite KV cache")
+            raise AssertionError(f"{arch}: non-finite KV cache")
     lg, _ = M.prefill_logits(params, {"tokens": torch.tensor([prompts[0]], device="cuda")}, cfg)
     if not torch.isfinite(lg[..., :cfg.vocab_size]).all():
-        raise AssertionError("non-finite logits")
+        raise AssertionError(f"{arch}: non-finite logits")
     n_gen = sum(len(t) for t in out.values())
     res = {
-        "params": n_params, "init_s": init_s, "requests": 16,
-        "prompt_lens": lens, "new_tokens": new_tokens, "waves": waves,
-        "prefills": eng.prefills, "launches": launches,
+        "arch": arch, "layers": L, "params": n_params, "init_s": init_s,
+        "requests": len(prompts), "prompt_lens": lens, "new_tokens": new_tokens,
+        # the highest position a decode step wrote into the caches
+        "max_seq": max_seq, "max_decode_pos": max(n + len(out[i]) - 2
+                                                  for i, n in enumerate(lens)),
+        "waves": waves, "prefills": eng.prefills, "launches": launches,
         "moe_gmm_variant_launches": variants,
-        "launches_per_wave": {"moe_gmm": (launches["moe_gmm"] - L * eng.prefills) / waves,
+        "launches_per_wave": {"moe_gmm": (launches["moe_gmm"] - L_moe * eng.prefills) / waves,
                               "flash_decode": launches["flash_decode"] / waves},
         "prefill_ms_per_request": 1e3 * sum(eng.admit_s) / eng.prefills,
         "decode_ms_per_wave": 1e3 * sum(eng.wave_s) / waves,
         "decode_ms_per_wave_median": 1e3 * sorted(eng.wave_s)[len(eng.wave_s) // 2],
         "run_s": run_s, "tokens_per_s": n_gen / run_s,
-        "decode_tokens_per_s": (n_gen - 16) / sum(eng.wave_s),
+        "decode_tokens_per_s": (n_gen - len(prompts)) / sum(eng.wave_s),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
     }
-    log("main_path", **res)
+    log("main_path" if arch == "olmoe-1b-7b" else f"main_path.{arch}", **res)
     return res, eng, prompts
 
 
-def profile_waves(torch, eng, prompts, wave_ms: float, n_waves: int = 4):
+def profile_waves(torch, eng, prompts, wave_ms: float, n_waves: int = 4,
+                  tag: str = "profile"):
     """Device time by kernel over a few full decode waves, the share of an
     unprofiled wave (`wave_ms`) in which the device is idle, and each
     wrapper's ``call_times`` there. On this host-bound path a call's span
@@ -517,8 +585,165 @@ def profile_waves(torch, eng, prompts, wave_ms: float, n_waves: int = 4):
            "idle_share": 1 - busy / wave_ms if busy else None,
            "kernels_per_wave": sum(r[1] for r in rows), "per_call": per_call,
            "top": [{"ms": r[0], "calls": r[1], "kernel": r[2]} for r in rows[:16]]}
-    log("profile", **res)
+    log(tag, **res)
     eng.run()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# DBO and speculative decoding
+# ---------------------------------------------------------------------------
+
+def device_busy_ms(torch, fn, n: int) -> float:
+    """Device time (ms) of the kernels `fn` launches, per call: the sum of
+    the profiler's CUDA kernel times over `n` calls, divided by `n`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            dev_us = getattr(evt, "self_device_time_total", None)
+            us += evt.self_cuda_time_total if dev_us is None else dev_us
+    return us / n / 1e3
+
+
+def clone(convert, caches):
+    return convert.tree_map(lambda t: t.clone(), caches)
+
+
+def dbo_phase(torch, M, kvcache, convert, dbo, kmoe, kfd, cfg, params,
+              prompt_len=64, steps=8, seq=128):
+    """Full olmoe-1b-7b: two microbatches of 4 at one prompt length. The DBO
+    step, on its own copy of the caches, must give bitwise the tokens and
+    caches of two plain decode steps, for `steps` steps; then the device
+    time of a DBO step beside that of two plain steps."""
+    import numpy as np
+    from repro_torch.sharding.dist import NullDist
+    from repro_torch.sharding.plans import null_plan
+    plan, dist = null_plan("decode"), NullDist()
+    rng = np.random.default_rng(SEED + 1)
+    toks, caches = [], []
+    for _ in range(2):
+        prompts = torch.tensor(rng.integers(1, cfg.vocab_size, (4, prompt_len)),
+                               dtype=torch.int32, device="cuda")
+        tok, c = M.prefill(params, {"tokens": prompts}, cfg)
+        toks.append(tok)
+        caches.append(kvcache.pad_to_capacity(cfg, c, prompt_len, seq))
+    plain = [clone(convert, c) for c in caches]
+    mine = [clone(convert, c) for c in caches]
+    ta, tb, da, db = toks[0], toks[1], toks[0], toks[1]
+    plain_s, dbo_s = [], []
+    reset_counts(kmoe, kfd)
+    for i in range(steps):
+        pos = prompt_len + i
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ta, plain[0] = M.decode_step(params, plain[0], ta, pos, cfg)
+        tb, plain[1] = M.decode_step(params, plain[1], tb, pos, cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if i == 0:
+            launches_plain = read_counts(kmoe, kfd)
+            reset_counts(kmoe, kfd)
+        da, db, mine[0], mine[1] = dbo.dbo_decode_step(
+            params, mine[0], mine[1], da, db, pos, cfg, plan, dist)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if i == 0:
+            launches = read_counts(kmoe, kfd)
+        plain_s.append(t1 - t0)
+        dbo_s.append(t2 - t1)
+        if not (torch.equal(da, ta) and torch.equal(db, tb)):
+            raise AssertionError(f"dbo: tokens differ from two plain steps at step {i}")
+    for got, want in zip(mine, plain):
+        for lg, lw in zip(got, want):
+            for n in ("k", "v"):
+                if not torch.equal(lg["mixer"][n], lw["mixer"][n]):
+                    raise AssertionError("dbo: caches differ from two plain steps")
+    L = cfg.num_layers
+    if launches != launches_plain or launches != {"moe_gmm": 2 * L, "flash_decode": 2 * L}:
+        raise AssertionError(f"dbo: launches {launches}, plain {launches_plain}, "
+                             f"want {2 * L} of each kernel per step")
+    pos = prompt_len + steps
+    busy_dbo = device_busy_ms(torch, lambda: dbo.dbo_decode_step(
+        params, mine[0], mine[1], da, db, pos, cfg, plan, dist), 4)
+    busy_plain = device_busy_ms(torch, lambda: (
+        M.decode_step(params, plain[0], ta, pos, cfg),
+        M.decode_step(params, plain[1], tb, pos, cfg)), 4)
+    res = {"microbatches": [4, 4], "prompt_len": prompt_len, "seq": seq,
+           "steps": steps, "bitwise_equal": True, "launches_first_step": launches,
+           "dbo_step_device_ms": busy_dbo, "two_plain_steps_device_ms": busy_plain,
+           "dbo_step_wall_ms_median": 1e3 * sorted(dbo_s)[steps // 2],
+           "two_plain_steps_wall_ms_median": 1e3 * sorted(plain_s)[steps // 2]}
+    log("dbo", **res)
+    return res
+
+
+def specdec_phase(torch, M, kvcache, convert, specdec, kmoe, kfd, cfg, params,
+                  batch, prompt_len, seq, n_tokens=17, spec_m=4):
+    """SD on the card at `batch` rows of `prompt_len` tokens: untrained heads
+    and an oracle draft (the greedy continuation), each equal to greedy
+    token for token, beside greedy's time per token. Each run starts from
+    its own copy of the prefilled caches."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 2)
+    prompts = torch.tensor(rng.integers(1, cfg.vocab_size, (batch, prompt_len)),
+                           dtype=torch.int32, device="cuda")
+    tok0, c = M.prefill(params, {"tokens": prompts}, cfg)
+    c = kvcache.pad_to_capacity(cfg, c, prompt_len, seq)
+
+    caches, tok, ref = clone(convert, c), tok0, [tok0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_tokens - 1 + spec_m):
+        if i == n_tokens - 1:
+            torch.cuda.synchronize()
+            greedy_s = time.perf_counter() - t0
+        tok, caches = M.decode_step(params, caches, tok, prompt_len + i, cfg)
+        ref.append(tok)
+    ref = torch.cat(ref, dim=1)                          # [B, n_tokens + spec_m]
+    del caches
+
+    def oracle(params_, caches_, cur_tok, pos):
+        i = pos - prompt_len                             # cur_tok is ref[:, i]
+        return ref[:, i + 1:i + spec_m].contiguous()
+
+    res = {"arch": cfg.name, "batch": batch, "prompt_len": prompt_len, "seq": seq,
+           "spec_m": spec_m, "n_tokens": n_tokens,
+           "greedy_ms_per_token": 1e3 * greedy_s / (n_tokens - 1)}
+    for name, draft_fn in (("heads", None), ("oracle", oracle)):
+        dec = specdec.SDDecoder(cfg, params, spec_m=spec_m, draft_fn=draft_fn,
+                                seed=SEED)
+        caches = clone(convert, c)
+        reset_counts(kmoe, kfd)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, _, stats = dec.generate(caches, tok0, prompt_len, n_tokens - 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(kmoe, kfd)
+        got = torch.cat([tok0, toks], dim=1)
+        if not torch.equal(got, ref[:, :n_tokens]):
+            raise AssertionError(f"specdec {cfg.name} {name}: differs from greedy")
+        steps = stats["iterations"] * spec_m
+        want = {"flash_decode": cfg.num_layers * steps,
+                "moe_gmm": sum(s.ffn == "moe" for s in cfg.layer_specs) * steps}
+        if launches != want:
+            raise AssertionError(f"specdec {cfg.name} {name}: launches {launches}, "
+                                 f"want {want}")
+        if name == "oracle" and stats["mean_accepted"] != spec_m:
+            raise AssertionError(f"specdec {cfg.name}: the oracle accepted "
+                                 f"{stats['mean_accepted']}, want {spec_m}")
+        res[name] = {"equals_greedy": True, "launches": launches, **stats,
+                     "ms_per_emitted_token": 1e3 * wall / (n_tokens - 1),
+                     "ms_per_iteration": 1e3 * wall / stats["iterations"]}
+        del caches, dec
+    log(f"specdec.{cfg.name}", **res)
     return res
 
 
@@ -540,7 +765,7 @@ def main() -> int:
     from repro_torch.kernels import flash_decode as kfd
     from repro_torch.kernels import moe_gmm as kmoe
     from repro_torch.models import model as M
-    from repro_torch.serving import kvcache
+    from repro_torch.serving import dbo, kvcache, specdec
     from repro_torch.serving.engine import Engine
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -550,6 +775,19 @@ def main() -> int:
     log("env", python=sys.version.split()[0], torch=torch.__version__,
         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), nvidia_smi=smi)
+
+    walls = {}
+
+    def phase(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        walls[name] = time.perf_counter() - t0
+        log("phase.wall", name=name, wall_s=walls[name])
+        return out
+
+    def free():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     secs = build.build_all()
@@ -561,21 +799,74 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    moe = check_moe_gmm(torch, ref, kmoe, gen)
-    fd = check_flash_decode(torch, F, ref, kfd, gen)
-    parity = parity_f32(torch, get_arch, M, kvcache, convert)
+    moe = phase("kernel.moe_gmm", check_moe_gmm, torch, ref, kmoe, gen)
+    fd = phase("kernel.flash_decode", check_flash_decode, torch, F, ref, kfd, gen)
+    parity = {"olmoe-1b-7b": phase("parity_f32", parity_f32, torch, get_arch, M,
+                                   kvcache, convert)}
+    free()
     torch.backends.cuda.matmul.allow_tf32 = False
-    main_res, eng, prompts = main_path(torch, get_arch, M, Engine, kmoe, kfd)
-    prof = profile_waves(torch, eng, prompts, main_res["decode_ms_per_wave_median"])
+
+    # olmoe-1b-7b: the main path, its profile, DBO and SD on its weights
+    main_res, eng, prompts = phase("main_path", main_path, torch, get_arch, M,
+                                   Engine, kmoe, kfd)
+    prof = phase("profile", profile_waves, torch, eng, prompts,
+                 main_res["decode_ms_per_wave_median"])
+    params, cfg = eng.params, eng.cfg
+    del eng
+    free()
+    dbo_res = phase("dbo", dbo_phase, torch, M, kvcache, convert, dbo, kmoe, kfd,
+                    cfg, params)
+    sd = {"olmoe-1b-7b": phase("specdec.olmoe-1b-7b", specdec_phase, torch, M,
+                               kvcache, convert, specdec, kmoe, kfd, cfg, params,
+                               batch=4, prompt_len=32, seq=96)}
+    del params
+    free()
+
+    # the other configurations through the engine, each with its own profile
+    others, profiles = {}, {"olmoe-1b-7b": prof}
+    paths = {"starcoder2-3b": dict(n_requests=12, new_tokens=16),
+             "granite-moe-3b-a800m": dict(n_requests=12, new_tokens=16),
+             # one request from position 1000 to past 1024: the rings wrap
+             "gemma3-1b": dict(lens=[1000] + list(range(24, 129, 8))[:11],
+                               new_tokens=40, max_seq=1152)}
+    for arch, kw in paths.items():
+        res, eng, prompts = phase(f"main_path.{arch}", main_path, torch, get_arch,
+                                  M, Engine, kmoe, kfd, arch=arch, **kw)
+        profiles[arch] = phase(f"profile.{arch}", profile_waves, torch, eng,
+                               prompts, res["decode_ms_per_wave_median"],
+                               tag=f"profile.{arch}")
+        others[arch] = res
+        if arch == "gemma3-1b":
+            if res["max_decode_pos"] < 1024:
+                raise AssertionError("gemma3-1b: no request wrapped the ring")
+            sd["gemma3-1b"] = phase(
+                "specdec.gemma3-1b", specdec_phase, torch, M, kvcache, convert,
+                specdec, kmoe, kfd, eng.cfg, eng.params, batch=1,
+                prompt_len=1012, seq=1100)
+        del eng
+        free()
+    # one full period of gemma3-1b (5 ring layers and a global one), f32,
+    # a prompt past the window
+    parity["gemma3-1b"] = phase("parity_f32.gemma3-1b", parity_f32, torch,
+                                get_arch, M, kvcache, convert, arch="gemma3-1b",
+                                layers=6, lens=(16, 1030, 300), seq=1100, steps=4)
+    free()
     floor_ms = event_floor_ms(torch)
     log("timing_floor", empty_call_ms=floor_ms)
 
+    launches_by_path = {"main_path.olmoe-1b-7b": main_res["launches"],
+                        **{f"main_path.{a}": r["launches"] for a, r in others.items()},
+                        "dbo (first step)": dbo_res["launches_first_step"],
+                        **{f"specdec.{a}.{d}": r[d]["launches"]
+                           for a, r in sd.items() for d in ("heads", "oracle")}}
+    log("launches_by_path", **launches_by_path)
     kernels = []
-    for name, variant, src, tpu, row in (
+    for name, variant, src, tpu, rows in (
             ("moe_gmm", "tensor_core", "src/repro_torch/csrc/moe_gmm.cu",
-             "src/repro/kernels/moe_gmm.py:50", moe["decode"]),
+             "src/repro/kernels/moe_gmm.py:50", moe),
             ("flash_decode", "split_s", "src/repro_torch/csrc/flash_decode.cu",
-             "src/repro/kernels/flash_decode.py:61", fd["decode"])):
+             "src/repro/kernels/flash_decode.py:61", fd)):
+        row = rows["decode"]
         profiled = row["profiled_ms"]
         ratio = row["ms"] / profiled
         log("timing_crosscheck", kernel=name, time_ms=row["ms"], profiled_ms=profiled,
@@ -585,20 +876,26 @@ def main() -> int:
             raise AssertionError(f"time_ms of {name} ({row['ms']} ms) and the "
                                  f"profiler's span ({profiled} ms) differ by more "
                                  f"than 15 %")
+        cases = {case: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                          "max_abs_err")}
+                 for case, r in rows.items() if "ms" in r and case != "decode"}
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": tpu, "variant": variant,
                         "launches": main_res["launches"][name],
+                        "launches_by_path": {p: n[name] for p, n in launches_by_path.items()},
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "profiled_ms": profiled,
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                        "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+                        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                        "other_timed_shapes": cases})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "kernel_attributes": attrs, "moe_gmm": moe, "flash_decode": fd,
          "parity_f32_max_abs_logit_err": parity, "main_path": main_res,
-         "timing_floor_ms": floor_ms,
-         "profile": prof, "kernels": kernels}, indent=1))
+         "main_paths": others, "dbo": dbo_res, "specdec": sd,
+         "timing_floor_ms": floor_ms, "phase_wall_s": walls,
+         "profile": profiles, "kernels": kernels}, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,9 +12,15 @@ from repro_torch.configs.base import (
     ShapeCell,
 )
 
-from repro_torch.configs import olmoe_1b_7b  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    gemma3_1b,
+    granite_moe_3b_a800m,
+    olmoe_1b_7b,
+    starcoder2_3b,
+)
 
-ARCHS = {m.CONFIG.name: m.CONFIG for m in (olmoe_1b_7b,)}
+ARCHS = {m.CONFIG.name: m.CONFIG for m in (
+    olmoe_1b_7b, starcoder2_3b, granite_moe_3b_a800m, gemma3_1b)}
 
 
 def get_arch(name: str) -> ModelConfig:

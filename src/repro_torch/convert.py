@@ -5,7 +5,8 @@ on the JAX side), never JAX arrays, so this module imports no JAX. A
 bfloat16 leaf is a numpy array whose ``dtype.name`` is "bfloat16"; it goes
 across bit for bit through a uint16 view. The JAX stack stores each period
 position's leaves stacked over periods (``{"periods": (...), "rem": (...)}``)
-for ``lax.scan``; the port keeps one entry per layer, in layer order.
+for ``lax.scan``; the port keeps one entry per layer, in layer order. A
+sliding-window layer's ring-buffer cache crosses as it is.
 Like every entry point of the port, the converters put the tensors on the
 card unless the caller passes ``device="cpu"``.
 """
@@ -67,3 +68,10 @@ def cache_from_jax(tree: dict, cfg, device="cuda") -> List[dict]:
     port's per-layer cache list."""
     return [tree_map(lambda a: to_torch(a, device).contiguous(), layer)
             for layer in unstack_layers(tree, cfg)]
+
+
+def draft_heads_from_jax(heads, device="cuda") -> List[torch.Tensor]:
+    """JAX ``specdec.init_draft_heads`` (a list of [d_model, vocab] numpy
+    arrays) -> the port's draft heads, so both sides draft the same
+    tokens."""
+    return [to_torch(h, device) for h in heads]

@@ -2,19 +2,23 @@
 
 Port of the single-device paths of ``repro.models.layers.attention``:
   prefill  ``attention_fwd`` (replicated weights): q/k/v, RoPE, chunked
-           online-softmax ``flash_attn``, output projection; with
-           ``make_cache`` it also returns the decode-layout cache
-           k, v [B, KV, S, hd].
-  decode   ``attention_decode`` (full attention): the new token's k/v are
-           written into the cache at ``pos``, then the attention core is
-           ``ops.flash_decode`` (the CUDA kernel on the card) over lengths
-           ``pos + 1``. ``pos`` is a scalar (one position for the batch, the
-           JAX semantics) or a [B] tensor (one position per slot). The
-           cache is updated in place and returned.
+           online-softmax ``flash_attn`` (causal, and windowed for
+           sliding-window layers), output projection; with ``make_cache``
+           it also returns the decode-layout cache: k, v [B, KV, S, hd] for
+           full attention, a ring buffer [B, KV, window, hd] holding the
+           last `window` positions at row ``pos % window`` for a window.
+  decode   ``attention_decode``: the new token's k/v are written into the
+           cache at ``pos`` (ring row ``pos % W`` for a window), then the
+           attention core is ``ops.flash_decode`` (the CUDA kernel on the
+           card) over lengths ``pos + 1`` (``min(pos + 1, W)`` on a ring:
+           before it wraps, rows 0..pos are exactly the written ones, and
+           softmax does not depend on row order). ``pos`` is a scalar (one
+           position for the batch, the JAX semantics) or a [B] tensor (one
+           position per slot). The cache is updated in place and returned.
 ``attn_chunk_lse`` and ``lse_combine`` are the JAX decode core in plain
 torch; the port's decode path does not call them, the tests hold
-``ops.flash_decode`` against them. Sliding-window, cross-attention, ring
-attention and the head-TP branches are not ported yet.
+``ops.flash_decode`` against them. Cross-attention, ring attention and the
+head-TP branches are not ported yet.
 """
 from __future__ import annotations
 
@@ -134,9 +138,9 @@ def _replicated_only(plan: ShardingPlan, dist: Dist):
 # ---------------------------------------------------------------------------
 
 def attention_fwd(params, x, cfg, plan: ShardingPlan, dist: Dist, *,
-                  make_cache: bool = False):
-    """Causal self-attention. x: [B, S, D]. Returns (y [B, S, D],
-    cache | None)."""
+                  window: int = 0, make_cache: bool = False):
+    """Causal self-attention, over the last `window` positions when
+    `window` > 0. x: [B, S, D]. Returns (y [B, S, D], cache | None)."""
     _replicated_only(plan, dist)
     if dist.size(plan.seq_axis) > 1:
         raise NotImplementedError("sequence-sharded attention is not "
@@ -150,16 +154,34 @@ def attention_fwd(params, x, cfg, plan: ShardingPlan, dist: Dist, *,
         k_c = torch.einsum("bsd,dkh->bksh", x, params["w_k"])
         v_c = torch.einsum("bsd,dkh->bksh", x, params["w_v"])
         k_c = apply_rope(k_c.transpose(1, 2), pos, cfg.rope_theta).transpose(1, 2)
-        cache = {"k": k_c.contiguous(), "v": v_c.contiguous()}
+        if window:
+            cache = _window_cache_from_prefill(k_c, v_c, window)
+        else:
+            cache = {"k": k_c.contiguous(), "v": v_c.contiguous()}
 
     q = (x @ params["w_q"]).reshape(B, s, H, hd)
     k = torch.einsum("bsd,dkh->bskh", x, params["w_k"])
     v = torch.einsum("bsd,dkh->bskh", x, params["w_v"])
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
-    o = flash_attn(q, k, v, causal=True)
+    o = flash_attn(q, k, v, causal=True, window=window)
     y = o.reshape(B, s, -1) @ params["w_o"]
     return y, cache
+
+
+def _window_cache_from_prefill(k_c, v_c, window: int):
+    """The ring-buffer cache of a sliding-window layer from the prefill's
+    k, v [B, KV, S, hd]: `window` rows, position p at row p % window, only
+    the last `window` positions kept, unwritten rows zero."""
+    B, KV, S, hd = k_c.shape
+    keep = torch.arange(max(S - window, 0), S, device=k_c.device)
+    rows = keep % window
+    ring = {}
+    for name, c in (("k", k_c), ("v", v_c)):
+        r = torch.zeros((B, KV, window, hd), dtype=c.dtype, device=c.device)
+        r[:, :, rows] = c[:, :, keep]
+        ring[name] = r
+    return ring
 
 
 # ---------------------------------------------------------------------------
@@ -173,10 +195,10 @@ def _positions(pos, B: int, device):
 
 
 def attention_decode(params, x, cache, pos, cfg, plan: ShardingPlan,
-                     dist: Dist):
-    """x: [B, 1, D]; cache k/v: [B, KV, S, hd]; pos: scalar or [B] positions
-    of the incoming tokens. Returns (y [B, 1, D], cache) with the cache
-    written in place."""
+                     dist: Dist, *, window: int = 0):
+    """x: [B, 1, D]; cache k/v: [B, KV, S, hd] (a ring [B, KV, W, hd] when
+    `window` > 0); pos: scalar or [B] positions of the incoming tokens.
+    Returns (y [B, 1, D], cache) with the cache written in place."""
     _replicated_only(plan, dist)
     if dist.size(plan.kv_axis) > 1:
         raise NotImplementedError("sequence-sharded decode is not ported yet")
@@ -191,17 +213,25 @@ def attention_decode(params, x, cache, pos, cfg, plan: ShardingPlan,
     v_new = torch.einsum("bd,dkh->bkh", xt, params["w_v"])
     k_new = apply_rope(k_new[:, None], p[:, None], cfg.rope_theta)[:, 0]
 
-    # write at pos; a position past the cache writes its old row back at
-    # the clamped slot (the JAX non-owner rule), so it changes nothing
     k_c, v_c = cache["k"], cache["v"]
     S = k_c.shape[2]
-    lc = torch.clamp(p, max=S - 1)
     rows = torch.arange(B, device=x.device)
-    in_range = (p < S)[:, None, None]
-    k_c[rows, :, lc] = torch.where(in_range, k_new, k_c[rows, :, lc])
-    v_c[rows, :, lc] = torch.where(in_range, v_new, v_c[rows, :, lc])
+    if window:
+        # ring: row pos % W is always in range, no clamp
+        r = p % S
+        k_c[rows, :, r] = k_new
+        v_c[rows, :, r] = v_new
+        length = torch.clamp(p + 1, max=S)
+    else:
+        # write at pos; a position past the cache writes its old row back
+        # at the clamped slot (the JAX non-owner rule), so it changes nothing
+        lc = torch.clamp(p, max=S - 1)
+        in_range = (p < S)[:, None, None]
+        k_c[rows, :, lc] = torch.where(in_range, k_new, k_c[rows, :, lc])
+        v_c[rows, :, lc] = torch.where(in_range, v_new, v_c[rows, :, lc])
+        length = p + 1
 
-    o = kops.flash_decode(q.contiguous(), k_c, v_c, (p + 1).to(torch.int32))
+    o = kops.flash_decode(q.contiguous(), k_c, v_c, length.to(torch.int32))
     y = _decode_out_proj(o, params, plan, dist, B)
     return y, cache
 

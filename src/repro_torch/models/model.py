@@ -2,8 +2,9 @@
 
 Port of ``repro.models.model`` for the attention families. Parameters are
 a dict ``{"embed", "stack": [per-layer dicts], "final_norm"}``; caches a
-list with one ``{"mixer": {"k", "v"}}`` per layer. Entry points run on
-``device="cuda"`` unless told otherwise, and raise when there is no card.
+list with one ``{"mixer": {"k", "v"}}`` per layer (a ring buffer for a
+sliding-window layer). Entry points run on ``device="cuda"`` unless told
+otherwise, and raise when there is no card.
 """
 from __future__ import annotations
 
@@ -87,13 +88,17 @@ def decode_step(params, caches, tokens, pos, cfg: ModelConfig,
 
 def init_cache(cfg: ModelConfig, plan: Optional[ShardingPlan] = None,
                batch: int = 1, seq: int = 1, *, device="cuda") -> List[dict]:
-    """Zero-filled decode caches: per layer k, v [batch, KV, seq, hd]."""
+    """Zero-filled decode caches: per layer k, v [batch, KV, seq, hd], or a
+    ring [batch, KV, min(window, seq), hd] for a sliding-window layer."""
     dev = resolve_device(device)
     dt = common.dtype_of(cfg)
-    shape = (batch, cfg.num_kv_heads, seq, cfg.head_dim)
     caches = []
     for spec in cfg.layer_specs:
         tf.check_supported(spec, cfg)
+        rows = seq
+        if spec.mixer == "attn_local" and cfg.sliding_window:
+            rows = min(cfg.sliding_window, seq)
+        shape = (batch, cfg.num_kv_heads, rows, cfg.head_dim)
         caches.append({"mixer": {"k": torch.zeros(shape, dtype=dt, device=dev),
                                  "v": torch.zeros(shape, dtype=dt, device=dev)}})
     return caches

@@ -1,10 +1,11 @@
 """Decoder stack: a Python loop over layers.
 
-Port of ``repro.models.transformer`` for the ``attn`` mixer with the
-``moe`` and ``dense`` FFNs. Where the JAX stack stores each period
-position's parameters stacked over periods for ``lax.scan``, the port keeps
-one dict per layer, in layer order (``convert`` unstacks JAX trees into
-this layout). Layer = pre-norm mixer + pre-norm FFN, residual around each.
+Port of ``repro.models.transformer`` for the GQA ``attn`` and
+``attn_local`` (sliding-window) mixers with the ``moe`` and ``dense``
+FFNs. Where the JAX stack stores each period position's parameters stacked
+over periods for ``lax.scan``, the port keeps one dict per layer, in layer
+order (``convert`` unstacks JAX trees into this layout). Layer = pre-norm
+mixer + pre-norm FFN, residual around each.
 """
 from __future__ import annotations
 
@@ -21,11 +22,11 @@ from repro_torch.sharding.plans import ShardingPlan
 
 
 def check_supported(spec: LayerSpec, cfg: ModelConfig):
-    if spec.mixer != "attn" or cfg.attn_kind != "gqa" or spec.ffn == "none" \
-            or cfg.is_encoder_decoder:
+    if spec.mixer not in ("attn", "attn_local") or cfg.attn_kind != "gqa" \
+            or spec.ffn == "none" or cfg.is_encoder_decoder:
         raise NotImplementedError(
-            f"layer {spec} of {cfg.name} is not ported yet (only attn "
-            "mixers with dense or moe FFNs)")
+            f"layer {spec} of {cfg.name} is not ported yet (only GQA attn "
+            "and attn_local mixers with dense or moe FFNs)")
 
 
 def init_layer(spec: LayerSpec, cfg: ModelConfig, plan: ShardingPlan, gen):
@@ -55,12 +56,14 @@ def apply_layer(spec: LayerSpec, p, x, cfg, plan: ShardingPlan, dist: Dist, *,
     capacity group, as the JAX engine's vmap over slots does."""
     check_supported(spec, cfg)
     new_cache = None
+    window = cfg.sliding_window if spec.mixer == "attn_local" else 0
     h = common.rms_norm(x, p["norm1"]["scale"], cfg.norm_eps)
     if mode == "decode":
         h, c = attn.attention_decode(p["mixer"], h, cache["mixer"], pos, cfg,
-                                     plan, dist)
+                                     plan, dist, window=window)
     else:
         h, c = attn.attention_fwd(p["mixer"], h, cfg, plan, dist,
+                                  window=window,
                                   make_cache=(mode == "prefill"))
     if c is not None:
         new_cache = {"mixer": c}

@@ -1,31 +1,76 @@
 """KV-cache management for the serving engine.
 
-Port of ``repro.serving.kvcache`` for full-attention caches: a per-layer
-list of ``{"mixer": {"k", "v"}}`` leaves [B, KV, S, hd], whose sequence
-dim (2) holds absolute positions.
+Port of ``repro.serving.kvcache``. The port's caches are a per-layer list
+of ``{group: {leaf: tensor}}`` (``group`` is "mixer"), not period-stacked
+trees, so a leaf is addressed by (layer index, group, leaf name) and its
+batch dim is always 0. This module owns where each leaf's *sequence* dim
+lives and which leaves are *recurrent* (order-dependent state that must
+be rolled back when speculative tokens are rejected) versus *positional*
+(indexed by absolute position: stale speculative writes are masked by the
+attention length and later overwritten, so rollback is free).
+
+Leaf classes (leaf key -> class), as in the JAX package:
+  k, v (full attention)   positional  (seq dim 2: [B, KV, S, hd])
+  k, v (sliding window)   recurrent   (ring buffer: slot aliasing breaks
+                                       the masking argument)
+  c_kv, k_rope (MLA)      positional  (seq dim 1)
+  conv, ssm (mamba)       recurrent
+  wkv, shift (rwkv)       recurrent
+  cross k, v              positional  (read-only after prefill)
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Callable, List, Tuple
 
+import torch
 import torch.nn.functional as F
 
-SEQ_DIM = 2
+# leaf-name -> seq dim of a non-window positional leaf
+_POSITIONAL_SEQ_DIM = {"k": 2, "v": 2, "c_kv": 1, "k_rope": 1}
+_RECURRENT_KEYS = {"conv", "ssm", "wkv", "shift"}
+
+
+def _leaf_info(cfg, layer: int, group: str, leaf: str) -> Tuple[str, int]:
+    """(class, seq_dim) of one cache leaf. class: 'positional'|'recurrent';
+    seq_dim is the dim holding absolute positions (-1: none)."""
+    spec = cfg.layer_specs[layer]
+    if leaf in _RECURRENT_KEYS:
+        return "recurrent", -1
+    if group == "cross":
+        return "positional", 2             # enc cache: fixed capacity
+    if spec.mixer == "attn_local" and cfg.sliding_window and leaf in ("k", "v"):
+        return "recurrent", -1             # ring buffer
+    return "positional", _POSITIONAL_SEQ_DIM[leaf]
+
+
+def _map_leaves(fn: Callable, caches: List[dict]):
+    """fn(layer, group, leaf, x) over every leaf, keeping the per-layer list
+    structure."""
+    return [{g: {n: fn(i, g, n, x) for n, x in leaves.items()}
+             for g, leaves in layer.items()}
+            for i, layer in enumerate(caches)]
+
+
+def classify(cfg, caches: List[dict]) -> List[dict]:
+    """Same structure as `caches`, each leaf 'positional' or 'recurrent'."""
+    return _map_leaves(lambda i, g, n, _: _leaf_info(cfg, i, g, n)[0], caches)
 
 
 def pad_to_capacity(cfg, caches: List[dict], from_seq: int, to_seq: int):
-    """Grow every k/v leaf's sequence dim from_seq -> to_seq with zeros
-    (prefill produced capacity from_seq; the engine runs at to_seq)."""
+    """Grow every positional leaf's sequence dim from_seq -> to_seq with
+    zeros (prefill produced capacity from_seq; the engine runs at to_seq).
+    Recurrent leaves (ring buffers) keep their shape whatever its size."""
     if to_seq < from_seq:
         raise ValueError(f"capacity {to_seq} < prefill length {from_seq}")
 
-    def pad(x):
-        if x.shape[SEQ_DIM] != from_seq:
+    def pad(i, g, n, x):
+        cls, dim = _leaf_info(cfg, i, g, n)
+        if cls == "recurrent" or x.shape[dim] != from_seq:
             return x
-        return F.pad(x, (0, 0, 0, to_seq - from_seq))
+        widths = [0, 0] * (x.dim() - dim - 1) + [0, to_seq - from_seq]
+        return F.pad(x, widths)
 
-    return [{g: {n: pad(x) for n, x in leaves.items()}
-             for g, leaves in layer.items()} for layer in caches]
+    return _map_leaves(pad, caches)
 
 
 def insert_slot(caches: List[dict], sub: List[dict], slot: int):
@@ -37,3 +82,41 @@ def insert_slot(caches: List[dict], sub: List[dict], slot: int):
                 full[slot].copy_(one[g][n][0])
     return caches
 
+
+def memory_bytes(caches: List[dict]) -> int:
+    return int(sum(x.numel() * x.element_size()
+                   for layer in caches for leaves in layer.values()
+                   for x in leaves.values()))
+
+
+def snapshot_recurrent(cfg, caches: List[dict]) -> List[dict]:
+    """A copy of every recurrent leaf (None at positional leaves): one step
+    of the history that ``select_history`` picks from. The port's decode
+    writes caches in place, so the history has to be a copy."""
+    return _map_leaves(
+        lambda i, g, n, x: x.clone()
+        if _leaf_info(cfg, i, g, n)[0] == "recurrent" else None, caches)
+
+
+def select_history(cfg, final_caches: List[dict], history: List[List[dict]],
+                   accept_idx):
+    """Combine speculative-decode cache state: positional leaves keep the
+    FINAL state (stale writes are masked/overwritten); recurrent leaves are
+    restored from `history` (one ``snapshot_recurrent`` per verify step,
+    in step order) at step `accept_idx` (the last step whose input token
+    was accepted): an int for the whole batch, or a [B] tensor, one step
+    per row. Returns the combined caches; `final_caches` is not modified.
+    The JAX function takes the history stacked per leaf and one step for
+    the batch; the per-row step is what its SD verify step selects."""
+    idx = torch.as_tensor(accept_idx).long()
+
+    def pick(i, g, n, final):
+        if _leaf_info(cfg, i, g, n)[0] == "positional":
+            return final
+        if idx.dim() == 0:
+            return history[int(idx)][i][g][n]
+        hist = torch.stack([h[i][g][n] for h in history])     # [T, B, ...]
+        rows = torch.arange(hist.shape[1], device=hist.device)
+        return hist[idx.to(hist.device), rows]
+
+    return _map_leaves(pick, final_caches)
