@@ -10,7 +10,8 @@ Phases, each printing its own lines before the last:
      (spilled) bytes per thread;
   3. kernels against their plain PyTorch versions on the card, at the main
      paths' shapes (olmoe-1b-7b, starcoder2-3b, granite-moe-3b-a800m,
-     gemma3-1b's ring and full caches) and at edge shapes, with device times
+     gemma3-1b's ring and full caches, deepseek-v3, jamba-v0.1-52b) and at
+     edge shapes, with device times
      (``time_ms``: the host's enqueue cost kept out), bounds and library
      yardsticks;
   4. float32 parity: olmoe-1b-7b at full width and 2 layers, the card's
@@ -34,10 +35,18 @@ Phases, each printing its own lines before the last:
      at full width and depth, bf16, through the same engine (gemma3 with one
      request from position 1000 to past 1024), each with its profile;
  10. float32 parity of gemma3-1b at full width and 6 layers (one period:
-     five ring layers and a global one), a prompt past the window.
+     five ring layers and a global one), a prompt past the window;
+ 11. deepseek-v3 (MLA, 256 experts top-8) at full width cut to 2 of 61
+     layers and jamba-v0.1-52b (Mamba + attention, 16 experts top-2) cut to
+     one period, 8 of 32 layers, each served by the engine with its
+     profile; the device share of deepseek-v3's plain-torch MLA decode;
+     ``dbo.deepseek-v3`` on the same weights; ``specdec.jamba-v0.1-52b`` at
+     one row (rejected drafts roll the SSM state back); float32 parity of
+     deepseek-v3 at 2 layers with 32 of its experts and of jamba at its
+     first 5 layers with 4 of its experts, prompts of 2, 40 and 130 tokens.
 Every path sets the launch counters to 0 just before it and reads them
-just after; ``flash_decode`` must run on every path and ``moe_gmm`` on
-every MoE path. Then one JSON line of per-kernel numbers, and as the last
+just after; ``flash_decode`` must run once per GQA layer and step (never
+on MLA or Mamba layers) and ``moe_gmm`` once per MoE layer and step. Then one JSON line of per-kernel numbers, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, and the
 script exits non-zero; without a CUDA device it exits non-zero before
 printing a result. Results also go to ``chiprun_out/chip_smoke.json``.
@@ -228,17 +237,27 @@ def max_err(a, b) -> float:
 # ---------------------------------------------------------------------------
 
 def check_moe_gmm(torch, ref, kmoe, gen):
-    def inputs(e, t, d, f):
-        x = torch.randn((e, t, d), generator=gen, device="cuda") * 0.3
-        ws = [torch.randn(s, generator=gen, device="cuda") * s[1] ** -0.5
-              for s in ((e, d, f), (e, d, f), (e, f, d))]
-        return [x] + ws
+    def inputs(e, t, d, f, dt):
+        """x at 0.3, weights at their fan-in^-0.5 (``init_moe``'s scale),
+        drawn in `dt` on the card."""
+        return [torch.randn(s, generator=gen, device="cuda", dtype=dt).mul_(c)
+                for s, c in (((e, t, d), 0.3), ((e, d, f), d ** -0.5),
+                             ((e, d, f), d ** -0.5), ((e, f, d), f ** -0.5))]
+
+    def by_experts(fn, args, n=32):
+        """`fn` over slices of at most `n` experts: the f32 truth at
+        deepseek-v3's 256 experts would need 45 GB at once."""
+        return torch.cat([fn(*(a[i:i + n] for a in args))
+                          for i in range(0, args[0].shape[0], n)])
 
     results = {}
     prefill_t = math.ceil(128 * 8 * 1.5 / 64)
     # (name, E, T, D, F, dtype, timed): olmoe-1b-7b's decode (8 slots x
     # capacity 1) and 128-token prefill, edge shapes, granite-moe-3b-a800m's
-    # decode and 128-token prefill (ceil(128 * 8 * 1.5 / 40) = 39)
+    # decode and 128-token prefill (ceil(128 * 8 * 1.5 / 40) = 39),
+    # deepseek-v3's (E=256 top-8: decode 8 x 1, prefill of 128 tokens
+    # ceil(128 * 8 * 1.5 / 256) = 6) and jamba-v0.1-52b's (E=16 top-2:
+    # decode 8 x 1, prefill ceil(128 * 2 * 1.5 / 16) = 24)
     cases = [("decode", 64, 8, 2048, 1024, "bfloat16", True),
              ("prefill", 64, prefill_t, 2048, 1024, "bfloat16", True),
              ("decode_f32", 64, 8, 2048, 1024, "float32", True),
@@ -251,18 +270,23 @@ def check_moe_gmm(torch, ref, kmoe, gen):
              ("granite_decode", 40, 8, 1536, 512, "bfloat16", True),
              ("granite_decode_f32", 40, 8, 1536, 512, "float32", False),
              ("granite_prefill", 40, math.ceil(128 * 8 * 1.5 / 40), 1536, 512,
-              "bfloat16", False)]
+              "bfloat16", False),
+             ("deepseek_decode", 256, 8, 7168, 2048, "bfloat16", True),
+             ("deepseek_prefill", 256, math.ceil(128 * 8 * 1.5 / 256), 7168, 2048,
+              "bfloat16", True),
+             ("jamba_decode", 16, 8, 4096, 14336, "bfloat16", True),
+             ("jamba_prefill", 16, math.ceil(128 * 2 * 1.5 / 16), 4096, 14336,
+              "bfloat16", True)]
     for name, e, t, d, f, dt, timed in cases:
-        full = inputs(e, t, d, f)
-        args = [a.to(getattr(torch, dt)) for a in full]
+        args = inputs(e, t, d, f, getattr(torch, dt))
         which = kmoe.variant(args[0].dtype, d, f)
         v0 = kmoe.variant_launches[which]
         got = kmoe.moe_gmm_cuda(*args)
         torch.cuda.synchronize()
         if kmoe.variant_launches[which] != v0 + 1:
             raise AssertionError(f"moe_gmm {name}: variant {which} not counted")
-        plain = ref.moe_gmm_ref(*args)
-        truth = ref.moe_gmm_ref(*(a.float() for a in args))
+        plain = by_experts(ref.moe_gmm_ref, args)
+        truth = by_experts(lambda *a: ref.moe_gmm_ref(*(x.float() for x in a)), args)
         err, err_truth = max_err(got, plain), max_err(got, truth)
         if dt == "float32":
             ok = torch.allclose(got, plain, atol=1e-4, rtol=1e-4)
@@ -291,7 +315,8 @@ def check_moe_gmm(torch, ref, kmoe, gen):
             row["hbm_tb_per_s"] = el * (2 * e * t * d + 3 * e * d * f) / row["ms"] / 1e9
         results[name] = row
         log("kernel.moe_gmm", case=name, **row)
-        del full, args, got, plain, truth
+        del args, got, plain, truth
+        torch.cuda.empty_cache()
     return results
 
 
@@ -304,7 +329,7 @@ def check_flash_decode(torch, F, ref, kfd, gen):
     # (name, H, KH, hd, S, lengths, dtype, timed): olmoe-1b-7b's decode and
     # edge cases; starcoder2-3b (g = 12), granite-moe-3b-a800m (g = 3,
     # hd 64) and gemma3-1b (g = 4, hd 256, KH 1) over its window-1024 ring
-    # and over a full cache
+    # and over a full cache; jamba-v0.1-52b's attention layer (g = 4, KH 8)
     cases = [("decode", 16, 16, 128, 512, decode, "bfloat16", True),
              ("ragged_S", 16, 16, 128, 500, [1, 37, 63, 64, 65, 200, 333, 500],
               "bfloat16", False),
@@ -319,7 +344,9 @@ def check_flash_decode(torch, F, ref, kfd, gen):
              ("gemma3_ring", 4, 1, 256, 1024, ring, "bfloat16", True),
              ("gemma3_ring_f32", 4, 1, 256, 1024, ring, "float32", False),
              ("gemma3_global", 4, 1, 256, 1152, [17, 49, 64, 65, 100, 128, 1040, 1152],
-              "bfloat16", False)]
+              "bfloat16", False),
+             ("jamba_g4", 32, 8, 128, 512, decode, "bfloat16", True),
+             ("jamba_g4_f32", 32, 8, 128, 500, edges, "float32", False)]
     for name, H, KH, hd, S, lens, dt, timed in cases:
         tdt = getattr(torch, dt)
         q = torch.randn((B, H, hd), generator=gen, device="cuda").to(tdt)
@@ -378,13 +405,19 @@ def check_flash_decode(torch, F, ref, kfd, gen):
 # ---------------------------------------------------------------------------
 
 def parity_f32(torch, get_arch, M, kvcache, convert, arch="olmoe-1b-7b",
-               layers=2, lens=(16, 40, 27), seq=64, steps=4):
+               layers=2, lens=(16, 40, 27), seq=64, steps=4, experts=None):
     """The card's path against the port's CPU path on the same float32
-    weights: `arch` at its published widths cut to `layers` layers, prompts
-    of `lens` tokens in a cache of `seq` positions, `steps` decode steps."""
+    weights: `arch` at its published widths cut to `layers` layers (and to
+    `experts` routed experts, top-k kept, where given), prompts of `lens`
+    tokens in a cache of `seq` positions, `steps` decode steps."""
+    import dataclasses
+
     import numpy as np
     tol = 1e-3
-    cfg = get_arch(arch).replace(num_layers=layers, dtype="float32")
+    full = get_arch(arch)
+    cfg = full.replace(num_layers=layers, dtype="float32")
+    if experts:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, num_experts=experts))
     t0 = time.perf_counter()
     p_cpu = M.init_model(cfg, device="cpu", seed=SEED)
     p_gpu = convert.tree_map(lambda t: t.to("cuda"), p_cpu)
@@ -424,7 +457,8 @@ def parity_f32(torch, get_arch, M, kvcache, convert, arch="olmoe-1b-7b",
                                  "top-2 margin exceeds the tolerance")
     if worst > tol:
         raise AssertionError(f"f32 parity: logits differ by {worst} > {tol}")
-    log("parity_f32", arch=arch, layers=layers, width=cfg.d_model,
+    log("parity_f32" if arch == "olmoe-1b-7b" else f"parity_f32.{arch}",
+        arch=arch, **cut_of(cfg, full), width=cfg.d_model,
         prompt_lens=list(lens), seq=seq, decode_steps=steps, max_abs_logit_err=worst,
         tol=tol, tokens_checked=n_checked, init_s=init_s,
         seconds=time.perf_counter() - t0)
@@ -437,6 +471,28 @@ def parity_f32(torch, get_arch, M, kvcache, convert, arch="olmoe-1b-7b",
 # phase 5: the main path
 # ---------------------------------------------------------------------------
 
+def kernel_layers(cfg):
+    """Launches per decode step the config's layers make: ``flash_decode``
+    once per GQA attention layer (MLA and Mamba layers run none),
+    ``moe_gmm`` once per MoE layer."""
+    gqa = sum(s.mixer in ("attn", "attn_local") and cfg.attn_kind == "gqa"
+              for s in cfg.layer_specs)
+    return {"moe_gmm": sum(s.ffn == "moe" for s in cfg.layer_specs),
+            "flash_decode": gqa}
+
+
+def cut_of(cfg, full):
+    """The depth and expert cuts of `cfg` against the published `full`."""
+    return {"layers": cfg.num_layers, "of_layers": full.num_layers,
+            "experts": cfg.moe.num_experts if cfg.moe else None,
+            "of_experts": full.moe.num_experts if full.moe else None}
+
+
+def all_finite(torch, caches) -> bool:
+    return all(bool(torch.isfinite(t).all()) for layer in caches
+               for leaves in layer.values() for t in leaves.values())
+
+
 def reset_counts(kmoe, kfd):
     kmoe.reset_counts()
     kfd.launches = 0
@@ -447,13 +503,14 @@ def read_counts(kmoe, kfd):
 
 
 def main_path(torch, get_arch, M, Engine, kmoe, kfd, arch="olmoe-1b-7b",
-              lens=None, new_tokens=32, max_seq=512, n_requests=16):
-    """`arch` at its published widths and depth, bf16, random weights from
-    SEED, served by ``Engine(max_batch=8, max_seq)``: `n_requests` requests
-    of 16-128 prompt tokens (or `lens`) and `new_tokens` new tokens each.
-    The launch counters are set to 0 just before the run and read just
-    after: `flash_decode` once per layer and wave; `moe_gmm` once per MoE
-    layer and wave and per prefill, in its tensor-core variant only."""
+              lens=None, new_tokens=32, max_seq=512, n_requests=16, layers=None):
+    """`arch` at its published widths, bf16, random weights from SEED, its
+    depth cut to `layers` where given, served by ``Engine(max_batch=8,
+    max_seq)``: `n_requests` requests of 16-128 prompt tokens (or `lens`)
+    and `new_tokens` new tokens each. The launch counters are set to 0 just
+    before the run and read just after: `flash_decode` once per GQA layer
+    and wave; `moe_gmm` once per MoE layer and wave and per prefill, in its
+    tensor-core variant only."""
     import numpy as np
 
     class TimedEngine(Engine):
@@ -482,7 +539,8 @@ def main_path(torch, get_arch, M, Engine, kmoe, kfd, arch="olmoe-1b-7b",
                 self.wave_s.append(t2 - t1)
             return n
 
-    cfg = get_arch(arch)
+    full = get_arch(arch)
+    cfg = full.replace(num_layers=layers) if layers else full
     t0 = time.perf_counter()
     params = M.init_model(cfg, device="cuda", seed=SEED)
     torch.cuda.synchronize()
@@ -506,32 +564,32 @@ def main_path(torch, get_arch, M, Engine, kmoe, kfd, arch="olmoe-1b-7b",
     launches = read_counts(kmoe, kfd)
     variants = dict(kmoe.variant_launches)
 
-    waves, L = len(eng.wave_s), cfg.num_layers
-    L_moe = sum(s.ffn == "moe" for s in cfg.layer_specs)
+    waves = len(eng.wave_s)
+    per_step = kernel_layers(cfg)
+    L_moe, L_fd = per_step["moe_gmm"], per_step["flash_decode"]
     if sorted(out) != list(range(len(prompts))):
         raise AssertionError(f"{arch}: requests not completed: {sorted(out)}")
     for rid, toks in out.items():
         want = min(new_tokens, max_seq - 1 - lens[rid]) + 1
         if len(toks) != want or not all(0 <= t < cfg.vocab_size for t in toks):
             raise AssertionError(f"{arch} request {rid}: bad output {toks}")
-    if launches["flash_decode"] != L * waves:
+    if launches["flash_decode"] != L_fd * waves:
         raise AssertionError(f"{arch}: flash_decode launched "
-                             f"{launches['flash_decode']} times, want {L} per "
+                             f"{launches['flash_decode']} times, want {L_fd} per "
                              f"wave x {waves} waves")
     if launches["moe_gmm"] != L_moe * (waves + eng.prefills) or \
             variants != {"tensor_core": launches["moe_gmm"], "cuda_core": 0}:
         raise AssertionError(f"{arch}: moe_gmm launched {variants}, want the "
                              f"tensor-core variant {L_moe} times per wave and "
                              f"per prefill, only")
-    for layer in eng.caches:
-        if not torch.isfinite(layer["mixer"]["k"]).all():
-            raise AssertionError(f"{arch}: non-finite KV cache")
+    if not all_finite(torch, eng.caches):
+        raise AssertionError(f"{arch}: non-finite cache")
     lg, _ = M.prefill_logits(params, {"tokens": torch.tensor([prompts[0]], device="cuda")}, cfg)
     if not torch.isfinite(lg[..., :cfg.vocab_size]).all():
         raise AssertionError(f"{arch}: non-finite logits")
     n_gen = sum(len(t) for t in out.values())
     res = {
-        "arch": arch, "layers": L, "params": n_params, "init_s": init_s,
+        "arch": arch, **cut_of(cfg, full), "params": n_params, "init_s": init_s,
         "requests": len(prompts), "prompt_lens": lens, "new_tokens": new_tokens,
         # the highest position a decode step wrote into the caches
         "max_seq": max_seq, "max_decode_pos": max(n + len(out[i]) - 2
@@ -617,8 +675,8 @@ def clone(convert, caches):
 
 
 def dbo_phase(torch, M, kvcache, convert, dbo, kmoe, kfd, cfg, params,
-              prompt_len=64, steps=8, seq=128):
-    """Full olmoe-1b-7b: two microbatches of 4 at one prompt length. The DBO
+              prompt_len=64, steps=8, seq=128, tag="dbo"):
+    """`cfg` on `params`: two microbatches of 4 at one prompt length. The DBO
     step, on its own copy of the caches, must give bitwise the tokens and
     caches of two plain decode steps, for `steps` steps; then the device
     time of a DBO step beside that of two plain steps."""
@@ -659,28 +717,29 @@ def dbo_phase(torch, M, kvcache, convert, dbo, kmoe, kfd, cfg, params,
         plain_s.append(t1 - t0)
         dbo_s.append(t2 - t1)
         if not (torch.equal(da, ta) and torch.equal(db, tb)):
-            raise AssertionError(f"dbo: tokens differ from two plain steps at step {i}")
+            raise AssertionError(f"{tag}: tokens differ from two plain steps at step {i}")
     for got, want in zip(mine, plain):
         for lg, lw in zip(got, want):
-            for n in ("k", "v"):
-                if not torch.equal(lg["mixer"][n], lw["mixer"][n]):
-                    raise AssertionError("dbo: caches differ from two plain steps")
-    L = cfg.num_layers
-    if launches != launches_plain or launches != {"moe_gmm": 2 * L, "flash_decode": 2 * L}:
-        raise AssertionError(f"dbo: launches {launches}, plain {launches_plain}, "
-                             f"want {2 * L} of each kernel per step")
+            for n, t in lg["mixer"].items():
+                if not torch.equal(t, lw["mixer"][n]):
+                    raise AssertionError(f"{tag}: caches differ from two plain steps")
+    want = {k: 2 * n for k, n in kernel_layers(cfg).items()}
+    if launches != launches_plain or launches != want:
+        raise AssertionError(f"{tag}: launches {launches}, plain {launches_plain}, "
+                             f"want {want} per step")
     pos = prompt_len + steps
     busy_dbo = device_busy_ms(torch, lambda: dbo.dbo_decode_step(
         params, mine[0], mine[1], da, db, pos, cfg, plan, dist), 4)
     busy_plain = device_busy_ms(torch, lambda: (
         M.decode_step(params, plain[0], ta, pos, cfg),
         M.decode_step(params, plain[1], tb, pos, cfg)), 4)
-    res = {"microbatches": [4, 4], "prompt_len": prompt_len, "seq": seq,
+    res = {"arch": cfg.name, "layers": cfg.num_layers, "microbatches": [4, 4],
+           "prompt_len": prompt_len, "seq": seq,
            "steps": steps, "bitwise_equal": True, "launches_first_step": launches,
            "dbo_step_device_ms": busy_dbo, "two_plain_steps_device_ms": busy_plain,
            "dbo_step_wall_ms_median": 1e3 * sorted(dbo_s)[steps // 2],
            "two_plain_steps_wall_ms_median": 1e3 * sorted(plain_s)[steps // 2]}
-    log("dbo", **res)
+    log(tag, **res)
     return res
 
 
@@ -713,8 +772,8 @@ def specdec_phase(torch, M, kvcache, convert, specdec, kmoe, kfd, cfg, params,
         i = pos - prompt_len                             # cur_tok is ref[:, i]
         return ref[:, i + 1:i + spec_m].contiguous()
 
-    res = {"arch": cfg.name, "batch": batch, "prompt_len": prompt_len, "seq": seq,
-           "spec_m": spec_m, "n_tokens": n_tokens,
+    res = {"arch": cfg.name, "layers": cfg.num_layers, "batch": batch,
+           "prompt_len": prompt_len, "seq": seq, "spec_m": spec_m, "n_tokens": n_tokens,
            "greedy_ms_per_token": 1e3 * greedy_s / (n_tokens - 1)}
     for name, draft_fn in (("heads", None), ("oracle", oracle)):
         dec = specdec.SDDecoder(cfg, params, spec_m=spec_m, draft_fn=draft_fn,
@@ -731,8 +790,7 @@ def specdec_phase(torch, M, kvcache, convert, specdec, kmoe, kfd, cfg, params,
         if not torch.equal(got, ref[:, :n_tokens]):
             raise AssertionError(f"specdec {cfg.name} {name}: differs from greedy")
         steps = stats["iterations"] * spec_m
-        want = {"flash_decode": cfg.num_layers * steps,
-                "moe_gmm": sum(s.ffn == "moe" for s in cfg.layer_specs) * steps}
+        want = {k: n * steps for k, n in kernel_layers(cfg).items()}
         if launches != want:
             raise AssertionError(f"specdec {cfg.name} {name}: launches {launches}, "
                                  f"want {want}")
@@ -744,6 +802,38 @@ def specdec_phase(torch, M, kvcache, convert, specdec, kmoe, kfd, cfg, params,
                      "ms_per_iteration": 1e3 * wall / stats["iterations"]}
         del caches, dec
     log(f"specdec.{cfg.name}", **res)
+    return res
+
+
+def mla_share(torch, eng, prof, kmoe, kfd):
+    """deepseek-v3's decode attention (``mla_decode``: projections, the
+    decompression of the latent cache and plain-torch attention over it,
+    no kernel of the port) per wave: the profiler's device time of one
+    layer's call at the engine's slots and positions, times the MLA layers,
+    against the wave's device time in `prof`."""
+    from repro_torch.models.layers import mla
+    from repro_torch.sharding.dist import NullDist
+    from repro_torch.sharding.plans import null_plan
+    cfg = eng.cfg
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    x = torch.randn((eng.max_batch, 1, cfg.d_model), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    cache = {n: t.clone() for n, t in eng.caches[0]["mixer"].items()}
+    reset_counts(kmoe, kfd)
+    ms = device_busy_ms(torch, lambda: mla.mla_decode(
+        eng.params["stack"][0]["mixer"], x, cache, eng.pos, cfg,
+        null_plan("decode"), NullDist()), 4)
+    if read_counts(kmoe, kfd) != {"moe_gmm": 0, "flash_decode": 0}:
+        raise AssertionError("mla_decode launched a kernel of the port")
+    n = cfg.num_layers
+    res = {"arch": cfg.name, "layers": n, "slots": eng.max_batch,
+           "seq": eng.max_seq, "positions": eng.pos.tolist(),
+           "mla_decode_device_ms_per_layer": ms,
+           "mla_decode_device_ms_per_wave": ms * n,
+           "wave_device_ms": prof["device_busy_ms_per_wave"],
+           "share_of_wave_device_time": ms * n / prof["device_busy_ms_per_wave"]}
+    log(f"mla_share.{cfg.name}", **res)
     return res
 
 
@@ -851,12 +941,54 @@ def main() -> int:
                                 get_arch, M, kvcache, convert, arch="gemma3-1b",
                                 layers=6, lens=(16, 1030, 300), seq=1100, steps=4)
     free()
+
+    # the paper's workload: deepseek-v3 at full width, 2 of 61 layers (24.9 B
+    # params, ~46 GiB in bf16), its profile, the share of its plain-torch
+    # MLA decode, and DBO on the same weights
+    ds, jb = "deepseek-v3", "jamba-v0.1-52b"
+    traffic = dict(n_requests=12, new_tokens=16)
+    res, eng, prompts = phase(f"main_path.{ds}", main_path, torch, get_arch, M,
+                              Engine, kmoe, kfd, arch=ds, layers=2, **traffic)
+    others[ds] = res
+    profiles[ds] = phase(f"profile.{ds}", profile_waves, torch, eng, prompts,
+                         res["decode_ms_per_wave_median"], tag=f"profile.{ds}")
+    mla = phase(f"mla_share.{ds}", mla_share, torch, eng, profiles[ds], kmoe, kfd)
+    dbo_ds = phase(f"dbo.{ds}", dbo_phase, torch, M, kvcache, convert, dbo, kmoe,
+                   kfd, eng.cfg, eng.params, tag=f"dbo.{ds}")
+    del eng
+    free()
+
+    # jamba-v0.1-52b: one period of 8 (7 Mamba layers, 1 attention; 4 MoE),
+    # 13.3 B params; SD at one row rolls the SSM state back
+    res, eng, prompts = phase(f"main_path.{jb}", main_path, torch, get_arch, M,
+                              Engine, kmoe, kfd, arch=jb, layers=8, **traffic)
+    others[jb] = res
+    profiles[jb] = phase(f"profile.{jb}", profile_waves, torch, eng, prompts,
+                         res["decode_ms_per_wave_median"], tag=f"profile.{jb}")
+    sd[jb] = phase(f"specdec.{jb}", specdec_phase, torch, M, kvcache, convert,
+                   specdec, kmoe, kfd, eng.cfg, eng.params, batch=1,
+                   prompt_len=64, seq=96)
+    del eng
+    free()
+
+    # f32 parity: deepseek-v3 at 2 layers with 32 of its 256 experts (top-8
+    # kept, ~20 GB per side); jamba at its first 5 layers (four Mamba, two
+    # MoE with 4 of 16 experts, the attention layer), prompts shorter than
+    # the conv tail and past a scan chunk
+    parity[ds] = phase(f"parity_f32.{ds}", parity_f32, torch, get_arch, M,
+                       kvcache, convert, arch=ds, layers=2, experts=32)
+    free()
+    parity[jb] = phase(f"parity_f32.{jb}", parity_f32, torch, get_arch, M,
+                       kvcache, convert, arch=jb, layers=5, experts=4,
+                       lens=(2, 40, 130), seq=160)
+    free()
     floor_ms = event_floor_ms(torch)
     log("timing_floor", empty_call_ms=floor_ms)
 
     launches_by_path = {"main_path.olmoe-1b-7b": main_res["launches"],
                         **{f"main_path.{a}": r["launches"] for a, r in others.items()},
                         "dbo (first step)": dbo_res["launches_first_step"],
+                        f"dbo.{ds} (first step)": dbo_ds["launches_first_step"],
                         **{f"specdec.{a}.{d}": r[d]["launches"]
                            for a, r in sd.items() for d in ("heads", "oracle")}}
     log("launches_by_path", **launches_by_path)
@@ -893,7 +1025,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "kernel_attributes": attrs, "moe_gmm": moe, "flash_decode": fd,
          "parity_f32_max_abs_logit_err": parity, "main_path": main_res,
-         "main_paths": others, "dbo": dbo_res, "specdec": sd,
+         "main_paths": others, "dbo": dbo_res, f"dbo.{ds}": dbo_ds, "specdec": sd,
+         "mla_share": mla,
          "timing_floor_ms": floor_ms, "phase_wall_s": walls,
          "profile": profiles, "kernels": kernels}, indent=1))
     print(smi)

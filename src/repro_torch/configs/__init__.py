@@ -13,14 +13,17 @@ from repro_torch.configs.base import (
 )
 
 from repro_torch.configs import (  # noqa: E402
+    deepseek_v3,
     gemma3_1b,
     granite_moe_3b_a800m,
+    jamba_v0_1_52b,
     olmoe_1b_7b,
     starcoder2_3b,
 )
 
 ARCHS = {m.CONFIG.name: m.CONFIG for m in (
-    olmoe_1b_7b, starcoder2_3b, granite_moe_3b_a800m, gemma3_1b)}
+    olmoe_1b_7b, starcoder2_3b, granite_moe_3b_a800m, gemma3_1b, deepseek_v3,
+    jamba_v0_1_52b)}
 
 
 def get_arch(name: str) -> ModelConfig:

@@ -1,0 +1,157 @@
+"""Mamba-1 block, jamba's sequence mixer.
+
+Port of the single-device path of ``repro.models.layers.mamba``: in
+projection, depthwise causal conv over the sequence, chunked selective
+scan in f32, gated out projection. The decode cache is the conv tail
+``conv`` [B, d_conv - 1, d_inner] in the model's dtype and the SSM state
+``ssm`` [B, d_inner, d_state] in float32; both are recurrent (order
+dependent), so speculative decoding rolls them back from copies
+(``serving/kvcache.py``). A prefill must see the prompt unpadded: a pad
+token changes the state. Tensor- and sequence-parallel paths are not
+ported.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers.common import dtype_of, normal
+from repro_torch.sharding.dist import Dist
+from repro_torch.sharding.plans import ShardingPlan
+
+
+def _dims(cfg):
+    """(d_inner, dt_rank, d_state, d_conv); dt_rank 0 means ceil(d/16)."""
+    mc = cfg.mamba
+    di = mc.expand * cfg.d_model
+    dtr = mc.dt_rank or -(-cfg.d_model // 16)
+    return di, dtr, mc.d_state, mc.d_conv
+
+
+def init_mamba(cfg, plan: ShardingPlan, gen):
+    d = cfg.d_model
+    di, dtr, ds, dc = _dims(cfg)
+    dt = dtype_of(cfg)
+    dev = gen.device
+    sc = d ** -0.5
+    return {
+        "w_x": normal((d, di), dt, gen, sc),
+        "w_z": normal((d, di), dt, gen, sc),
+        "conv_w": normal((dc, di), dt, gen, 0.2),
+        "conv_b": torch.zeros((di,), dtype=dt, device=dev),
+        "w_bc": normal((di, 2 * ds), dt, gen, di ** -0.5),
+        "w_dt_in": normal((di, dtr), dt, gen, di ** -0.5),
+        "w_dt": normal((dtr, di), dt, gen, dtr ** -0.5),
+        "dt_bias": torch.full((di,), -4.6, dtype=dt, device=dev),  # softplus^-1(0.01)
+        # float32 whatever the model's dtype, as in the JAX layer
+        "log_a": torch.log(torch.arange(1, ds + 1, dtype=torch.float32,
+                                        device=dev)).repeat(di, 1),
+        "d_skip": torch.ones((di,), dtype=torch.float32, device=dev),
+        "w_out": normal((di, d), dt, gen, di ** -0.5),
+    }
+
+
+def _scan_chunk(a, b):
+    """Inclusive scan of h -> a_t * h + b_t along dim 1, by doubling:
+    log2(ck) steps of whole-tensor ops. a, b: [B, ck, di, ds]. Returns
+    (a_cum, b_cum) with h_t = a_cum[t] * h_in + b_cum[t]."""
+    ck = a.shape[1]
+    d = 1
+    while d < ck:
+        # element t combines with element t - d: (a', b') . (a, b)
+        a_prev, b_prev = a[:, :-d], b[:, :-d]
+        b = torch.cat([b[:, :d], b_prev * a[:, d:] + b[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a_prev * a[:, d:]], dim=1)
+        d *= 2
+    return a, b
+
+
+def _ssm_scan(u, dt_, b, c, log_a, d_skip, h0, chunk: int = 128):
+    """Selective scan. u/dt_: [B, S, di]; b/c: [B, S, ds]; h0: [B, di, ds],
+    all float32. Chunks of `chunk` steps (the tail chunk padded with the
+    identity step); within a chunk a doubling scan, across chunks a loop
+    carrying the state. Returns (y [B, S, di], h_final)."""
+    B, S, di = u.shape
+    ds = b.shape[-1]
+    a = -torch.exp(log_a)                                          # [di, ds]
+    da = torch.exp(dt_[..., None] * a)                             # [B,S,di,ds]
+    dbu = (dt_ * u)[..., None] * b[:, :, None, :]                  # [B,S,di,ds]
+
+    ck = min(chunk, S)
+    pad = (-S) % ck
+    if pad:
+        da = F.pad(da, (0, 0, 0, 0, 0, pad), value=1.0)
+        dbu = F.pad(dbu, (0, 0, 0, 0, 0, pad))
+        c = F.pad(c, (0, 0, 0, pad))
+    h, ys = h0, []
+    for c0 in range(0, S + pad, ck):
+        a_cum, b_cum = _scan_chunk(da[:, c0:c0 + ck], dbu[:, c0:c0 + ck])
+        h_seq = a_cum * h[:, None] + b_cum                         # [B, ck, di, ds]
+        ys.append(torch.einsum("bsdn,bsn->bsd", h_seq, c[:, c0:c0 + ck]))
+        h = h_seq[:, -1]
+    y = torch.cat(ys, dim=1)[:, :S]
+    return y + u * d_skip, h
+
+
+def _gates(params, uc):
+    """B, C [.., ds] and the step sizes dt [.., di], float32, from the
+    conv output `uc`."""
+    bc = (uc @ params["w_bc"]).float()
+    b, c = torch.chunk(bc, 2, dim=-1)
+    dt_ = F.softplus(((uc @ params["w_dt_in"]) @ params["w_dt"]).float()
+                     + params["dt_bias"].float())
+    return b, c, dt_
+
+
+def mamba_fwd(params, x, cfg, plan: ShardingPlan, dist: Dist, *,
+              make_cache: bool = False):
+    """x: [B, S, D]. Returns (y [B, S, D], {"conv", "ssm"} | None): the conv
+    tail is the last d_conv - 1 rows of the in projection before the conv,
+    zero rows first when S < d_conv - 1."""
+    if dist.size(plan.seq_axis) > 1 or dist.size(plan.tp_axis) > 1:
+        raise NotImplementedError("sharded Mamba is not ported yet")
+    di, dtr, ds, dc = _dims(cfg)
+    B, S, _ = x.shape
+    u = x @ params["w_x"]                                          # [B, S, di]
+    z = x @ params["w_z"]
+    conv_w = params["conv_w"]                                      # [dc, di]
+    u_pad = F.pad(u, (0, 0, dc - 1, 0))
+    conv = sum(u_pad[:, i:i + S] * conv_w[i] for i in range(dc)) + params["conv_b"]
+    uc = F.silu(conv.float()).to(u.dtype)
+    b, c, dt_ = _gates(params, uc)
+
+    h0 = torch.zeros((B, di, ds), dtype=torch.float32, device=x.device)
+    y, h_fin = _ssm_scan(uc.float(), dt_, b, c, params["log_a"],
+                         params["d_skip"], h0)
+    y = (y * F.silu(z.float())).to(x.dtype)
+    out = y @ params["w_out"]
+
+    cache = None
+    if make_cache:
+        cache = {"conv": u_pad[:, S:].contiguous(), "ssm": h_fin}
+    return out, cache
+
+
+def mamba_decode(params, x, cache, cfg, plan: ShardingPlan, dist: Dist):
+    """x: [B, 1, D]; cache: conv [B, d_conv - 1, di], ssm [B, di, ds] f32.
+    One step of the conv and the scan. Returns (y [B, 1, D], cache) with
+    the cache written in place (each leaf keeps its dtype)."""
+    if dist.size(plan.tp_axis) > 1:
+        raise NotImplementedError("tensor-parallel Mamba is not ported yet")
+    xt = x[:, 0]
+    u = xt @ params["w_x"]                                         # [B, di]
+    z = xt @ params["w_z"]
+    conv_in = torch.cat([cache["conv"], u[:, None]], dim=1)        # [B, dc, di]
+    conv = torch.einsum("bcd,cd->bd", conv_in, params["conv_w"]) + params["conv_b"]
+    uc = F.silu(conv.float()).to(u.dtype)
+    b, c, dt_ = _gates(params, uc)
+
+    a = -torch.exp(params["log_a"])
+    da = torch.exp(dt_[..., None] * a)                             # [B, di, ds]
+    h = cache["ssm"] * da + (dt_ * uc.float())[..., None] * b[:, None, :]
+    y = torch.einsum("bdn,bn->bd", h, c) + uc.float() * params["d_skip"]
+    y = (y * F.silu(z.float())).to(x.dtype)
+    out = y @ params["w_out"]
+    cache["conv"].copy_(conv_in[:, 1:])
+    cache["ssm"].copy_(h)
+    return out[:, None], cache

@@ -1,9 +1,10 @@
 """Model API: init / prefill / decode / cache construction.
 
-Port of ``repro.models.model`` for the attention families. Parameters are
-a dict ``{"embed", "stack": [per-layer dicts], "final_norm"}``; caches a
-list with one ``{"mixer": {"k", "v"}}`` per layer (a ring buffer for a
-sliding-window layer). Entry points run on ``device="cuda"`` unless told
+Port of ``repro.models.model`` for the attention, MLA and Mamba families.
+Parameters are a dict ``{"embed", "stack": [per-layer dicts],
+"final_norm"}``; caches a list with one ``{"mixer": {...}}`` per layer:
+``k``, ``v`` for GQA (a ring buffer for a sliding-window layer), the
+latent ``c_kv``, ``k_rope`` for MLA, ``conv``, ``ssm`` for Mamba. Entry points run on ``device="cuda"`` unless told
 otherwise, and raise when there is no card.
 """
 from __future__ import annotations
@@ -88,17 +89,33 @@ def decode_step(params, caches, tokens, pos, cfg: ModelConfig,
 
 def init_cache(cfg: ModelConfig, plan: Optional[ShardingPlan] = None,
                batch: int = 1, seq: int = 1, *, device="cuda") -> List[dict]:
-    """Zero-filled decode caches: per layer k, v [batch, KV, seq, hd], or a
-    ring [batch, KV, min(window, seq), hd] for a sliding-window layer."""
+    """Zero-filled decode caches, per layer: k, v [batch, KV, seq, hd], or a
+    ring [batch, KV, min(window, seq), hd] for a sliding-window layer; MLA's
+    c_kv [batch, seq, r] and k_rope [batch, seq, rp]; Mamba's conv
+    [batch, d_conv - 1, d_inner] and ssm [batch, d_inner, d_state], the
+    latter float32 in any model dtype."""
     dev = resolve_device(device)
     dt = common.dtype_of(cfg)
+
+    def zeros(shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
     caches = []
     for spec in cfg.layer_specs:
         tf.check_supported(spec, cfg)
-        rows = seq
-        if spec.mixer == "attn_local" and cfg.sliding_window:
-            rows = min(cfg.sliding_window, seq)
-        shape = (batch, cfg.num_kv_heads, rows, cfg.head_dim)
-        caches.append({"mixer": {"k": torch.zeros(shape, dtype=dt, device=dev),
-                                 "v": torch.zeros(shape, dtype=dt, device=dev)}})
+        if spec.mixer == "mamba":
+            mc = cfg.mamba
+            di = mc.expand * cfg.d_model
+            c = {"conv": zeros((batch, mc.d_conv - 1, di)),
+                 "ssm": zeros((batch, di, mc.d_state), torch.float32)}
+        elif cfg.attn_kind == "mla":
+            c = {"c_kv": zeros((batch, seq, cfg.mla_kv_lora_rank)),
+                 "k_rope": zeros((batch, seq, cfg.mla_rope_head_dim))}
+        else:
+            rows = seq
+            if spec.mixer == "attn_local" and cfg.sliding_window:
+                rows = min(cfg.sliding_window, seq)
+            shape = (batch, cfg.num_kv_heads, rows, cfg.head_dim)
+            c = {"k": zeros(shape), "v": zeros(shape)}
+        caches.append({"mixer": c})
     return caches

@@ -1,10 +1,11 @@
 """Decoder stack: a Python loop over layers.
 
 Port of ``repro.models.transformer`` for the GQA ``attn`` and
-``attn_local`` (sliding-window) mixers with the ``moe`` and ``dense``
-FFNs. Where the JAX stack stores each period position's parameters stacked
-over periods for ``lax.scan``, the port keeps one dict per layer, in layer
-order (``convert`` unstacks JAX trees into this layout). Layer = pre-norm
+``attn_local`` (sliding-window) mixers, MLA (``attn_kind == "mla"``) and
+the ``mamba`` mixer, with the ``moe`` and ``dense`` FFNs. Where the JAX
+stack stores each period position's parameters stacked over periods for
+``lax.scan``, the port keeps one dict per layer, in layer order
+(``convert`` unstacks JAX trees into this layout). Layer = pre-norm
 mixer + pre-norm FFN, residual around each.
 """
 from __future__ import annotations
@@ -16,17 +17,25 @@ import torch
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models.layers import attention as attn
 from repro_torch.models.layers import common
+from repro_torch.models.layers import mamba as mamba_mod
+from repro_torch.models.layers import mla as mla_mod
 from repro_torch.models.layers import moe as moe_mod
 from repro_torch.sharding.dist import Dist
 from repro_torch.sharding.plans import ShardingPlan
 
 
 def check_supported(spec: LayerSpec, cfg: ModelConfig):
-    if spec.mixer not in ("attn", "attn_local") or cfg.attn_kind != "gqa" \
-            or spec.ffn == "none" or cfg.is_encoder_decoder:
+    attn_ok = spec.mixer in ("attn", "attn_local") and cfg.attn_kind in ("gqa", "mla")
+    if not (attn_ok or spec.mixer == "mamba") or spec.ffn == "none" \
+            or cfg.is_encoder_decoder or cfg.frontend:
         raise NotImplementedError(
-            f"layer {spec} of {cfg.name} is not ported yet (only GQA attn "
-            "and attn_local mixers with dense or moe FFNs)")
+            f"layer {spec} of {cfg.name} is not ported yet (only GQA or MLA "
+            "attn, attn_local and mamba mixers with dense or moe FFNs, "
+            "decoder-only, no frontend)")
+
+
+def _is_mla(spec: LayerSpec, cfg: ModelConfig) -> bool:
+    return spec.mixer in ("attn", "attn_local") and cfg.attn_kind == "mla"
 
 
 def init_layer(spec: LayerSpec, cfg: ModelConfig, plan: ShardingPlan, gen):
@@ -34,7 +43,7 @@ def init_layer(spec: LayerSpec, cfg: ModelConfig, plan: ShardingPlan, gen):
     dev = gen.device
     params: Dict[str, Any] = {
         "norm1": common.init_rms_norm(cfg.d_model, torch.float32, dev),
-        "mixer": attn.init_attention(cfg, plan, gen),
+        "mixer": _init_mixer(spec, cfg, plan, gen),
         "norm2": common.init_rms_norm(cfg.d_model, torch.float32, dev),
     }
     if spec.ffn == "dense":
@@ -42,6 +51,14 @@ def init_layer(spec: LayerSpec, cfg: ModelConfig, plan: ShardingPlan, gen):
     else:
         params["ffn"] = moe_mod.init_moe(cfg, plan, gen)
     return params
+
+
+def _init_mixer(spec: LayerSpec, cfg: ModelConfig, plan: ShardingPlan, gen):
+    if spec.mixer == "mamba":
+        return mamba_mod.init_mamba(cfg, plan, gen)
+    if _is_mla(spec, cfg):
+        return mla_mod.init_mla(cfg, plan, gen)
+    return attn.init_attention(cfg, plan, gen)
 
 
 def per_slot(pos) -> bool:
@@ -58,13 +75,27 @@ def apply_layer(spec: LayerSpec, p, x, cfg, plan: ShardingPlan, dist: Dist, *,
     new_cache = None
     window = cfg.sliding_window if spec.mixer == "attn_local" else 0
     h = common.rms_norm(x, p["norm1"]["scale"], cfg.norm_eps)
-    if mode == "decode":
+    make_cache = mode == "prefill"
+    if spec.mixer == "mamba":
+        if mode == "decode":
+            h, c = mamba_mod.mamba_decode(p["mixer"], h, cache["mixer"], cfg,
+                                          plan, dist)
+        else:
+            h, c = mamba_mod.mamba_fwd(p["mixer"], h, cfg, plan, dist,
+                                       make_cache=make_cache)
+    elif _is_mla(spec, cfg):
+        if mode == "decode":
+            h, c = mla_mod.mla_decode(p["mixer"], h, cache["mixer"], pos, cfg,
+                                      plan, dist)
+        else:
+            h, c = mla_mod.mla_fwd(p["mixer"], h, cfg, plan, dist,
+                                   make_cache=make_cache)
+    elif mode == "decode":
         h, c = attn.attention_decode(p["mixer"], h, cache["mixer"], pos, cfg,
                                      plan, dist, window=window)
     else:
         h, c = attn.attention_fwd(p["mixer"], h, cfg, plan, dist,
-                                  window=window,
-                                  make_cache=(mode == "prefill"))
+                                  window=window, make_cache=make_cache)
     if c is not None:
         new_cache = {"mixer": c}
     x = x + h

@@ -70,14 +70,14 @@ def test_config_and_reduction_match_jax(arch):
 
 
 def test_registry_and_derived_sizes():
-    assert set(ARCHS) == {"olmoe-1b-7b"} | set(NEW_ARCHS)
+    assert set(ARCHS) == {"olmoe-1b-7b", "deepseek-v3", "jamba-v0.1-52b"} | set(NEW_ARCHS)
     g = get_arch("gemma3-1b")
     assert (g.n_periods, g.n_remainder) == (4, 2)
     assert [s.mixer for s in g.layer_specs].count("attn") == 4
     assert reduced_config(g).sliding_window == 8
     assert TC.padded_vocab(get_arch("granite-moe-3b-a800m")) == 49408
     with pytest.raises(KeyError):
-        get_arch("deepseek-v3")
+        get_arch("rwkv6-1.6b")
 
 
 # ---------------------------------------------------------------------------

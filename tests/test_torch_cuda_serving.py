@@ -1,6 +1,7 @@
-"""The port's kernels at the shapes of starcoder2-3b, granite-moe-3b-a800m
-and gemma3-1b, and the sliding-window, DBO and speculative-decoding paths,
-on the card against the port's plain CPU path (``cuda`` marker; skipped
+"""The port's kernels at the shapes of starcoder2-3b, granite-moe-3b-a800m,
+gemma3-1b, deepseek-v3 and jamba-v0.1-52b, and the sliding-window, MLA,
+Mamba, DBO and speculative-decoding paths, on the card against the port's
+plain CPU path (``cuda`` marker; skipped
 without a card). Like ``tests/test_torch_cuda.py`` this file imports no
 JAX, so it runs where only PyTorch is installed:
 
@@ -167,6 +168,123 @@ def test_dbo_on_the_card_equals_two_plain_steps(cuda):
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "gemma3-1b"])
 def test_sd_on_the_card_equals_greedy(cuda, arch):
     cfg, params = reduced(arch)
+    params = on_card(params, cuda)
+    prompt = torch.tensor([[3, 5, 7, 11, 2, 4]], device=cuda)
+    tok, c = M.prefill(params, {"tokens": prompt}, cfg)
+    c = kvcache.pad_to_capacity(cfg, c, 6, 64)
+    ref_toks, caches, t = [tok], clone(c), tok
+    for pos in range(6, 6 + 11):
+        t, caches = M.decode_step(params, caches, t, pos, cfg)
+        ref_toks.append(t)
+    want = torch.cat(ref_toks, dim=1)
+    dec = SDDecoder(cfg, params, spec_m=4, device=cuda)
+    toks, _, _ = dec.generate(c, tok, 6, 11)
+    assert torch.equal(torch.cat([tok, toks], dim=1), want)
+
+
+# ---------------------------------------------------------------------------
+# deepseek-v3 (MLA, 256 experts) and jamba-v0.1-52b (Mamba): shapes and paths
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("e,t,d,f,dtype", [
+    (256, 8, 7168, 2048, torch.bfloat16),      # deepseek-v3 decode
+    (16, 24, 4096, 14336, torch.bfloat16),     # jamba prefill of 128 tokens
+    (16, 8, 4096, 14336, torch.float32)])      # jamba decode, CUDA-core variant
+def test_moe_gmm_at_the_new_models_widths(cuda, e, t, d, f, dtype):
+    """Published widths, weights at ``init_moe``'s scale, drawn on the card.
+    The f32 truth and the plain bf16 version go 32 experts at a time (at
+    256 experts the whole f32 truth would need 45 GB)."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(e)
+    args = [torch.randn(s, generator=g, device=cuda, dtype=dtype).mul_(c)
+            for s, c in (((e, t, d), 0.3), ((e, d, f), d ** -0.5),
+                         ((e, d, f), d ** -0.5), ((e, f, d), f ** -0.5))]
+    n0 = tmg.launches
+    got = tmg.moe_gmm_cuda(*args)
+    assert tmg.launches == n0 + 1
+    for i in range(0, e, 32):
+        sl = [a[i:i + 32] for a in args]
+        truth = ref.moe_gmm_ref(*(a.float() for a in sl))
+        if dtype == torch.float32:
+            torch.testing.assert_close(got[i:i + 32], truth, atol=1e-4, rtol=1e-4)
+            continue
+        err_plain = (ref.moe_gmm_ref(*sl).float() - truth).abs().max()
+        assert (got[i:i + 32].float() - truth).abs().max() <= 1.5 * err_plain + 1e-3
+
+
+def test_mla_decode_on_the_card_matches_cpu(cuda):
+    """Reduced deepseek-v3, float32: per-slot positions, one of them past
+    the cache (the clamped write of the new latent), the card's output and
+    latent cache against the CPU's. No kernel of the port runs here."""
+    from repro_torch.models.layers import mla as TMLA
+    cfg, params = reduced("deepseek-v3")
+    pos = torch.tensor([0, 5, 15, 21])
+    x, c_kv, k_rope = (torch.from_numpy(a) for a in arrays(
+        9, (4, 1, cfg.d_model), (4, 16, cfg.mla_kv_lora_rank),
+        (4, 16, cfg.mla_rope_head_dim)))
+    mix = params["stack"][0]["mixer"]
+    outs = []
+    for dev in ("cpu", cuda):
+        cache = {"c_kv": c_kv.clone().to(dev), "k_rope": k_rope.clone().to(dev)}
+        m0, f0 = tmg.launches, tfd.launches
+        y, c = TMLA.mla_decode(on_card(mix, dev), x.to(dev), cache, pos.to(dev),
+                               cfg, null_plan("decode"), NullDist())
+        assert (tmg.launches, tfd.launches) == (m0, f0)
+        outs.append((y.cpu(), c["c_kv"].cpu(), c["k_rope"].cpu()))
+    for a, b in zip(*outs):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3", "jamba-v0.1-52b"])
+def test_engine_new_models_on_the_card_match_cpu(cuda, arch):
+    """Reduced deepseek-v3 and jamba (prompts of 2, 8 and 11 tokens, one
+    shorter than jamba's conv tail) through the engine: the card's tokens
+    equal the CPU's, with moe_gmm once per MoE layer and wave and per
+    prefill, and flash_decode once per GQA layer and wave (none on MLA)."""
+    cfg, params = reduced(arch)
+    rng = np.random.default_rng(1)
+    reqs = [rng.integers(1, 500, n).tolist() for n in (2, 8, 11)]
+    n_moe = sum(s.ffn == "moe" for s in cfg.layer_specs)
+    n_gqa = sum(s.mixer == "attn" for s in cfg.layer_specs) if cfg.attn_kind == "gqa" else 0
+    out = []
+    for dev, p in (("cpu", params), (cuda, on_card(params, cuda))):
+        eng = Engine(cfg, p, max_batch=2, max_seq=32, eos_id=-1, device=dev)
+        for r in reqs:
+            eng.submit(r, max_new_tokens=10)
+        m0, f0, waves = tmg.launches, tfd.launches, 0
+        while eng.queue or any(eng.live):
+            waves += eng.step() > 0
+        out.append({rid: r.generated for rid, r in eng.finished.items()})
+        if dev is cuda:
+            assert tmg.launches - m0 == n_moe * (waves + len(reqs))
+            assert tfd.launches - f0 == n_gqa * waves
+    assert out[0] == out[1]
+
+
+def test_dbo_deepseek_on_the_card_equals_two_plain_steps(cuda):
+    cfg, params = reduced("deepseek-v3")
+    params = on_card(params, cuda)
+    toks, caches = [], []
+    for prompts in ([[3, 5, 7, 11], [9, 8, 1, 6]], [[2, 7, 1, 8], [1, 4, 1, 4]]):
+        tok, c = M.prefill(params, {"tokens": torch.tensor(prompts, device=cuda)}, cfg)
+        toks.append(tok)
+        caches.append(kvcache.pad_to_capacity(cfg, c, 4, 16))
+    na, pa = M.decode_step(params, clone(caches[0]), toks[0], 4, cfg)
+    nb, pb = M.decode_step(params, clone(caches[1]), toks[1], 4, cfg)
+    da, db, ca, cb = dbo_decode_step(params, clone(caches[0]), clone(caches[1]),
+                                     toks[0], toks[1], 4, cfg, null_plan("decode"),
+                                     NullDist())
+    assert torch.equal(da, na) and torch.equal(db, nb)
+    for got, want in ((ca, pa), (cb, pb)):
+        for lg, lw in zip(got, want):
+            for n in ("c_kv", "k_rope"):
+                assert torch.equal(lg["mixer"][n], lw["mixer"][n])
+
+
+def test_sd_jamba_on_the_card_equals_greedy(cuda):
+    """Untrained heads reject most drafts: the SSM and conv states are
+    restored from the per-step copies on the card."""
+    cfg, params = reduced("jamba-v0.1-52b")
     params = on_card(params, cuda)
     prompt = torch.tensor([[3, 5, 7, 11, 2, 4]], device=cuda)
     tok, c = M.prefill(params, {"tokens": prompt}, cfg)
