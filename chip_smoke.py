@@ -10,8 +10,10 @@ Phases, each printing its own lines before the last:
      (spilled) bytes per thread;
   3. kernels against their plain PyTorch versions on the card, at the main
      paths' shapes (olmoe-1b-7b, starcoder2-3b, granite-moe-3b-a800m,
-     gemma3-1b's ring and full caches, deepseek-v3, jamba-v0.1-52b) and at
-     edge shapes, with device times
+     gemma3-1b's ring and full caches, deepseek-v3, jamba-v0.1-52b,
+     deepseek-67b's g = 8, seamless-m4t-medium's g = 1 self-attention and
+     its cross-attention over the whole cache) and at edge shapes, with
+     device times
      (``time_ms``: the host's enqueue cost kept out), bounds and library
      yardsticks;
   4. float32 parity: olmoe-1b-7b at full width and 2 layers, the card's
@@ -43,10 +45,23 @@ Phases, each printing its own lines before the last:
      ``dbo.deepseek-v3`` on the same weights; ``specdec.jamba-v0.1-52b`` at
      one row (rejected drafts roll the SSM state back); float32 parity of
      deepseek-v3 at 2 layers with 32 of its experts and of jamba at its
-     first 5 layers with 4 of its experts, prompts of 2, 40 and 130 tokens.
+     first 5 layers with 4 of its experts, prompts of 2, 40 and 130 tokens;
+ 12. the dense and attention-free configurations and the encoder-decoder:
+     ``main_path.minitron-8b`` (all 32 layers), ``main_path.deepseek-67b``
+     (40 of 95 layers, g = 8), ``main_path.rwkv6-1.6b`` (all 24 layers, no
+     kernel) with ``specdec.rwkv6-1.6b`` at one row (rejected drafts roll
+     the WKV state and both token shifts back) and
+     ``main_path.seamless-m4t-medium`` (12 encoder + 12 decoder layers,
+     cross-attention through ``flash_decode`` over the whole padded
+     encoder cache), each with its profile; ``prefill_patches.internvl2-76b``
+     (16 of 80 layers): B = 2, 256 patch embeddings and 64 text tokens
+     through ``prefill``, then 16 decode steps; float32 parity of rwkv6 at
+     2 layers (prompts of 2, 40 and 130 tokens, past two scan chunks) and
+     of seamless at 2 + 2 layers on random frames.
 Every path sets the launch counters to 0 just before it and reads them
 just after; ``flash_decode`` must run once per GQA layer and step (never
-on MLA or Mamba layers) and ``moe_gmm`` once per MoE layer and step. Then one JSON line of per-kernel numbers, and as the last
+on MLA, Mamba or RWKV layers), once more per decoder layer with
+cross-attention, and ``moe_gmm`` once per MoE layer and step. Then one JSON line of per-kernel numbers, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, and the
 script exits non-zero; without a CUDA device it exits non-zero before
 printing a result. Results also go to ``chiprun_out/chip_smoke.json``.
@@ -329,7 +344,8 @@ def check_flash_decode(torch, F, ref, kfd, gen):
     # (name, H, KH, hd, S, lengths, dtype, timed): olmoe-1b-7b's decode and
     # edge cases; starcoder2-3b (g = 12), granite-moe-3b-a800m (g = 3,
     # hd 64) and gemma3-1b (g = 4, hd 256, KH 1) over its window-1024 ring
-    # and over a full cache; jamba-v0.1-52b's attention layer (g = 4, KH 8)
+    # and over a full cache; jamba-v0.1-52b's attention layer (g = 4, KH 8),
+    # which minitron-8b's layers share
     cases = [("decode", 16, 16, 128, 512, decode, "bfloat16", True),
              ("ragged_S", 16, 16, 128, 500, [1, 37, 63, 64, 65, 200, 333, 500],
               "bfloat16", False),
@@ -346,7 +362,16 @@ def check_flash_decode(torch, F, ref, kfd, gen):
              ("gemma3_global", 4, 1, 256, 1152, [17, 49, 64, 65, 100, 128, 1040, 1152],
               "bfloat16", False),
              ("jamba_g4", 32, 8, 128, 512, decode, "bfloat16", True),
-             ("jamba_g4_f32", 32, 8, 128, 500, edges, "float32", False)]
+             ("jamba_g4_f32", 32, 8, 128, 500, edges, "float32", False),
+             # deepseek-67b and internvl2-76b (g = 8, H 64), seamless-m4t-medium
+             # (g = 1, hd 64) and its cross-attention, every row over all
+             # max_seq positions of the padded encoder cache
+             ("deepseek67b_g8", 64, 8, 128, 512, decode, "bfloat16", True),
+             ("deepseek67b_g8_f32", 64, 8, 128, 500, edges, "float32", False),
+             ("seamless_g1_hd64", 16, 16, 64, 512, decode, "bfloat16", True),
+             ("seamless_g1_hd64_f32", 16, 16, 64, 500, edges, "float32", False),
+             ("seamless_cross", 16, 16, 64, 512, [512] * 8, "bfloat16", True),
+             ("seamless_cross_f32", 16, 16, 64, 512, [512] * 8, "float32", False)]
     for name, H, KH, hd, S, lens, dt, timed in cases:
         tdt = getattr(torch, dt)
         q = torch.randn((B, H, hd), generator=gen, device="cuda").to(tdt)
@@ -407,15 +432,21 @@ def check_flash_decode(torch, F, ref, kfd, gen):
 def parity_f32(torch, get_arch, M, kvcache, convert, arch="olmoe-1b-7b",
                layers=2, lens=(16, 40, 27), seq=64, steps=4, experts=None):
     """The card's path against the port's CPU path on the same float32
-    weights: `arch` at its published widths cut to `layers` layers (and to
-    `experts` routed experts, top-k kept, where given), prompts of `lens`
-    tokens in a cache of `seq` positions, `steps` decode steps."""
+    weights: `arch` at its published widths cut to `layers` layers (an
+    encoder-decoder to `layers` encoder layers too, each prompt encoding
+    random frames, one per token, and decode reading the whole padded
+    encoder cache, as the engine does) and to `experts` routed experts,
+    top-k kept, where given; prompts of `lens` tokens in a cache of `seq`
+    positions, `steps` decode steps."""
     import dataclasses
 
     import numpy as np
     tol = 1e-3
     full = get_arch(arch)
     cfg = full.replace(num_layers=layers, dtype="float32")
+    if cfg.is_encoder_decoder:
+        cfg = cfg.replace(encoder_layers=layers)
+    enc_len = seq if cfg.is_encoder_decoder else 0
     if experts:
         cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, num_experts=experts))
     t0 = time.perf_counter()
@@ -424,19 +455,26 @@ def parity_f32(torch, get_arch, M, kvcache, convert, arch="olmoe-1b-7b",
     init_s = time.perf_counter() - t0
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in lens]
+    frames = [torch.from_numpy(rng.standard_normal((1, n, cfg.d_model), np.float32))
+              for n in lens]
 
     def run(params, device, feed=None):
-        caches = M.init_cache(cfg, batch=len(prompts), seq=seq, device=device)
+        caches = M.init_cache(cfg, batch=len(prompts), seq=seq, enc_seq=enc_len,
+                              device=device)
         logits = []
         for slot, p in enumerate(prompts):
-            lg, sub = M.prefill_logits(params, {"tokens": torch.tensor([p], device=device)}, cfg)
+            batch = {"tokens": torch.tensor([p], device=device)}
+            if cfg.is_encoder_decoder:
+                batch["frames"] = frames[slot].to(device)
+            lg, sub = M.prefill_logits(params, batch, cfg)
             kvcache.insert_slot(caches, kvcache.pad_to_capacity(cfg, sub, len(p), seq), slot)
             logits.append(lg[:, 0, :cfg.vocab_size])
         pos = torch.tensor([len(p) for p in prompts], device=device)
         tok = torch.cat(logits).argmax(-1, keepdim=True) if feed is None else feed[0].to(device)
         toks, step_logits = [tok.cpu()], [torch.cat(logits).cpu()]
         for i in range(steps):
-            lg, caches = M.decode_logits(params, caches, tok.to(torch.int32), pos, cfg)
+            lg, caches = M.decode_logits(params, caches, tok.to(torch.int32), pos, cfg,
+                                         enc_len=enc_len)
             step_logits.append(lg[:, 0, :cfg.vocab_size].cpu())
             tok = lg[:, 0, :cfg.vocab_size].argmax(-1, keepdim=True) if feed is None else feed[i + 1].to(device)
             toks.append(tok.cpu())
@@ -473,19 +511,34 @@ def parity_f32(torch, get_arch, M, kvcache, convert, arch="olmoe-1b-7b",
 
 def kernel_layers(cfg):
     """Launches per decode step the config's layers make: ``flash_decode``
-    once per GQA attention layer (MLA and Mamba layers run none),
-    ``moe_gmm`` once per MoE layer."""
+    once per GQA attention layer (MLA, Mamba and RWKV layers run none) and
+    once more per decoder layer with cross-attention, ``moe_gmm`` once per
+    MoE layer."""
     gqa = sum(s.mixer in ("attn", "attn_local") and cfg.attn_kind == "gqa"
               for s in cfg.layer_specs)
+    cross = cfg.num_layers if cfg.is_encoder_decoder else 0
     return {"moe_gmm": sum(s.ffn == "moe" for s in cfg.layer_specs),
-            "flash_decode": gqa}
+            "flash_decode": gqa + cross}
 
 
 def cut_of(cfg, full):
     """The depth and expert cuts of `cfg` against the published `full`."""
-    return {"layers": cfg.num_layers, "of_layers": full.num_layers,
-            "experts": cfg.moe.num_experts if cfg.moe else None,
-            "of_experts": full.moe.num_experts if full.moe else None}
+    cut = {"layers": cfg.num_layers, "of_layers": full.num_layers,
+           "experts": cfg.moe.num_experts if cfg.moe else None,
+           "of_experts": full.moe.num_experts if full.moe else None}
+    if full.is_encoder_decoder:
+        cut.update(encoder_layers=cfg.encoder_layers, of_encoder_layers=full.encoder_layers)
+    return cut
+
+
+def n_params(params) -> int:
+    """Every weight of `params` (a tree of dicts and lists of tensors)."""
+    if isinstance(params, dict):
+        return sum(n_params(v) for v in params.values())
+    if isinstance(params, list):
+        return sum(n_params(v) for v in params)
+    return params.numel()
+
 
 
 def all_finite(torch, caches) -> bool:
@@ -545,8 +598,6 @@ def main_path(torch, get_arch, M, Engine, kmoe, kfd, arch="olmoe-1b-7b",
     params = M.init_model(cfg, device="cuda", seed=SEED)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for layer in params["stack"] for g in layer.values()
-                   for t in g.values()) + sum(t.numel() for t in params["embed"].values())
     rng = np.random.default_rng(SEED)
     if lens is None:
         lens = rng.integers(16, 129, n_requests).tolist()
@@ -584,12 +635,16 @@ def main_path(torch, get_arch, M, Engine, kmoe, kfd, arch="olmoe-1b-7b",
                              f"per prefill, only")
     if not all_finite(torch, eng.caches):
         raise AssertionError(f"{arch}: non-finite cache")
-    lg, _ = M.prefill_logits(params, {"tokens": torch.tensor([prompts[0]], device="cuda")}, cfg)
+    batch = {"tokens": torch.tensor([prompts[0]], device="cuda")}
+    if cfg.is_encoder_decoder:                        # zero frames, as the engine
+        batch["frames"] = torch.zeros((1, lens[0], cfg.d_model), device="cuda",
+                                      dtype=getattr(torch, cfg.dtype))
+    lg, _ = M.prefill_logits(params, batch, cfg)
     if not torch.isfinite(lg[..., :cfg.vocab_size]).all():
         raise AssertionError(f"{arch}: non-finite logits")
     n_gen = sum(len(t) for t in out.values())
     res = {
-        "arch": arch, **cut_of(cfg, full), "params": n_params, "init_s": init_s,
+        "arch": arch, **cut_of(cfg, full), "params": n_params(params), "init_s": init_s,
         "requests": len(prompts), "prompt_lens": lens, "new_tokens": new_tokens,
         # the highest position a decode step wrote into the caches
         "max_seq": max_seq, "max_decode_pos": max(n + len(out[i]) - 2
@@ -805,6 +860,76 @@ def specdec_phase(torch, M, kvcache, convert, specdec, kmoe, kfd, cfg, params,
     return res
 
 
+def prefill_patches(torch, get_arch, M, kvcache, kmoe, kfd, arch="internvl2-76b",
+                    layers=16, batch=2, text=64, steps=16):
+    """The ViT-patch frontend at published widths, `layers` layers: `batch`
+    rows of ``n_frontend_tokens`` patch embeddings (random, at the token
+    embeddings' scale) and `text` text tokens through ``prefill``, then
+    `steps` decode steps on its caches. The prefill launches no kernel;
+    each decode step launches ``flash_decode`` once per layer. The patches
+    must change the prefill's logits, which must be finite."""
+    import numpy as np
+    full = get_arch(arch)
+    cfg = full.replace(num_layers=layers)
+    t0 = time.perf_counter()
+    params = M.init_model(cfg, device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    pf = cfg.n_frontend_tokens
+    S = pf + text
+    tokens = torch.tensor(np.random.default_rng(SEED).integers(1, cfg.vocab_size, (batch, S)),
+                          dtype=torch.int32, device="cuda")
+    patches = torch.randn((batch, pf, cfg.d_model), generator=gen, device="cuda",
+                          dtype=torch.bfloat16).mul_(0.02)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kmoe, kfd)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = M.prefill_logits(params, {"tokens": tokens, "patches": patches}, cfg)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = read_counts(kmoe, kfd)
+    lg = logits[..., :cfg.vocab_size]
+    tokens_only, _ = M.prefill_logits(params, {"tokens": tokens}, cfg)
+    moved = max_err(lg, tokens_only[..., :cfg.vocab_size])
+    if not torch.isfinite(lg).all() or not moved > 0:
+        raise AssertionError(f"{arch}: prefill logits not finite or not moved by "
+                             f"the patches ({moved})")
+    tok = lg.argmax(-1).to(torch.int32)
+    caches = kvcache.pad_to_capacity(cfg, caches, S, S + steps + 1)
+    reset_counts(kmoe, kfd)
+    step_s, out = [], [tok]
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, caches = M.decode_step(params, caches, tok, S + i, cfg)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        out.append(tok)
+    launches = read_counts(kmoe, kfd)
+    want = {k: n * steps for k, n in kernel_layers(cfg).items()}
+    toks = torch.cat(out, dim=1)
+    if prefill_launches != {"moe_gmm": 0, "flash_decode": 0} or launches != want:
+        raise AssertionError(f"{arch}: prefill launched {prefill_launches}, decode "
+                             f"{launches}, want none and {want}")
+    if not ((toks >= 0) & (toks < cfg.vocab_size)).all() or not all_finite(torch, caches):
+        raise AssertionError(f"{arch}: bad tokens or non-finite caches")
+    pos = S + steps
+    step_dev = device_busy_ms(torch, lambda: M.decode_step(params, caches, tok, pos, cfg), 4)
+    res = {"arch": arch, **cut_of(cfg, full), "params": n_params(params), "init_s": init_s,
+           "batch": batch, "patches": pf, "text_tokens": text, "prefill_len": S,
+           "decode_steps": steps, "prefill_ms": 1e3 * prefill_s,
+           "decode_ms_per_step_median": 1e3 * _median(step_s),
+           "decode_device_ms_per_step": step_dev,
+           "max_abs_logit_change_from_patches": moved,
+           "prefill_launches": prefill_launches, "launches": launches,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log(f"prefill_patches.{arch}", **res)
+    return res
+
+
 def mla_share(torch, eng, prof, kmoe, kfd):
     """deepseek-v3's decode attention (``mla_decode``: projections, the
     decompression of the latent cache and plain-torch attention over it,
@@ -982,6 +1107,53 @@ def main() -> int:
                        kvcache, convert, arch=jb, layers=5, experts=4,
                        lens=(2, 40, 130), seq=160)
     free()
+    # the dense configurations at published widths: minitron-8b whole (9.9 B
+    # params, LM head 4096 x 256000) and deepseek-67b cut to 40 of its 95
+    # layers (~29 B params, ~55 GiB; all 95 would be ~134 GB)
+    for arch, layers in (("minitron-8b", None), ("deepseek-67b", 40)):
+        res, eng, prompts = phase(f"main_path.{arch}", main_path, torch, get_arch, M,
+                                  Engine, kmoe, kfd, arch=arch, layers=layers, **traffic)
+        others[arch] = res
+        profiles[arch] = phase(f"profile.{arch}", profile_waves, torch, eng, prompts,
+                               res["decode_ms_per_wave_median"], tag=f"profile.{arch}")
+        del eng
+        free()
+    # rwkv6-1.6b whole, attention-free (no kernel of the port on its path);
+    # SD at one row rolls the WKV state and both token shifts back
+    rw, sm = "rwkv6-1.6b", "seamless-m4t-medium"
+    res, eng, prompts = phase(f"main_path.{rw}", main_path, torch, get_arch, M,
+                              Engine, kmoe, kfd, arch=rw, **traffic)
+    others[rw] = res
+    profiles[rw] = phase(f"profile.{rw}", profile_waves, torch, eng, prompts,
+                         res["decode_ms_per_wave_median"], tag=f"profile.{rw}")
+    sd[rw] = phase(f"specdec.{rw}", specdec_phase, torch, M, kvcache, convert,
+                   specdec, kmoe, kfd, eng.cfg, eng.params, batch=1,
+                   prompt_len=64, seq=96)
+    del eng
+    free()
+    # seamless-m4t-medium whole (12 encoder + 12 decoder layers): a second
+    # flash_decode per decoder layer, cross-attention over max_seq positions
+    res, eng, prompts = phase(f"main_path.{sm}", main_path, torch, get_arch, M,
+                              Engine, kmoe, kfd, arch=sm, **traffic)
+    others[sm] = res
+    profiles[sm] = phase(f"profile.{sm}", profile_waves, torch, eng, prompts,
+                         res["decode_ms_per_wave_median"], tag=f"profile.{sm}")
+    del eng
+    free()
+    # internvl2-76b's patch frontend, 16 of 80 layers (~16 B params); its
+    # engine path is deepseek-67b's dense g = 8 path
+    vl = "internvl2-76b"
+    patches = phase(f"prefill_patches.{vl}", prefill_patches, torch, get_arch, M,
+                    kvcache, kmoe, kfd)
+    free()
+    # f32 parity: rwkv6 at 2 layers, prompts past two scan chunks; seamless
+    # at 2 encoder + 2 decoder layers on random frames
+    parity[rw] = phase(f"parity_f32.{rw}", parity_f32, torch, get_arch, M, kvcache,
+                       convert, arch=rw, layers=2, lens=(2, 40, 130), seq=160)
+    free()
+    parity[sm] = phase(f"parity_f32.{sm}", parity_f32, torch, get_arch, M, kvcache,
+                       convert, arch=sm, layers=2)
+    free()
     floor_ms = event_floor_ms(torch)
     log("timing_floor", empty_call_ms=floor_ms)
 
@@ -989,6 +1161,7 @@ def main() -> int:
                         **{f"main_path.{a}": r["launches"] for a, r in others.items()},
                         "dbo (first step)": dbo_res["launches_first_step"],
                         f"dbo.{ds} (first step)": dbo_ds["launches_first_step"],
+                        f"prefill_patches.{vl} (decode)": patches["launches"],
                         **{f"specdec.{a}.{d}": r[d]["launches"]
                            for a, r in sd.items() for d in ("heads", "oracle")}}
     log("launches_by_path", **launches_by_path)
@@ -1026,7 +1199,7 @@ def main() -> int:
         {"nvidia_smi": smi, "kernel_attributes": attrs, "moe_gmm": moe, "flash_decode": fd,
          "parity_f32_max_abs_logit_err": parity, "main_path": main_res,
          "main_paths": others, "dbo": dbo_res, f"dbo.{ds}": dbo_ds, "specdec": sd,
-         "mla_share": mla,
+         "mla_share": mla, f"prefill_patches.{vl}": patches,
          "timing_floor_ms": floor_ms, "phase_wall_s": walls,
          "profile": profiles, "kernels": kernels}, indent=1))
     print(smi)

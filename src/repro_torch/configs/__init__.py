@@ -1,6 +1,5 @@
 """Architecture registry of the port: ``get_arch(name)`` resolves through
-ARCHS. Only the architectures whose whole path the port runs are
-registered."""
+ARCHS, which holds the same eleven architectures as the JAX package's."""
 import dataclasses
 
 from repro_torch.configs.base import (
@@ -13,17 +12,23 @@ from repro_torch.configs.base import (
 )
 
 from repro_torch.configs import (  # noqa: E402
+    deepseek_67b,
     deepseek_v3,
     gemma3_1b,
     granite_moe_3b_a800m,
+    internvl2_76b,
     jamba_v0_1_52b,
+    minitron_8b,
     olmoe_1b_7b,
+    rwkv6_1_6b,
+    seamless_m4t_medium,
     starcoder2_3b,
 )
 
 ARCHS = {m.CONFIG.name: m.CONFIG for m in (
     olmoe_1b_7b, starcoder2_3b, granite_moe_3b_a800m, gemma3_1b, deepseek_v3,
-    jamba_v0_1_52b)}
+    jamba_v0_1_52b, deepseek_67b, minitron_8b, rwkv6_1_6b, internvl2_76b,
+    seamless_m4t_medium)}
 
 
 def get_arch(name: str) -> ModelConfig:

@@ -12,7 +12,7 @@ card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
@@ -38,34 +38,46 @@ def to_torch(a: np.ndarray, device="cuda") -> torch.Tensor:
     return t.to(dev)
 
 
-def unstack_layers(stack: dict, cfg) -> List[Any]:
+def unstack_layers(stack: dict, cfg, n_layers: Optional[int] = None,
+                   period_len: Optional[int] = None) -> List[Any]:
     """{"periods": tuple of period-stacked trees, "rem": tuple} -> one tree
     per layer, in the order the JAX stack runs them (period j, position i
-    is layer j * len(period) + i; the remainder follows)."""
-    n_pos = len(cfg.period)
+    is layer j * len(period) + i; the remainder follows). A stack of
+    `n_layers` over a period of `period_len` positions (default: the
+    config's decoder stack)."""
+    n_pos = period_len or len(cfg.period)
+    n_layers = cfg.num_layers if n_layers is None else n_layers
     layers = []
-    for j in range(cfg.n_periods):
+    for j in range(n_layers // n_pos):
         for i in range(n_pos):
             layers.append(tree_map(lambda a: a[j], stack["periods"][i]))
     layers.extend(stack["rem"])
-    if len(layers) != cfg.num_layers:
+    if len(layers) != n_layers:
         raise ValueError(f"{len(layers)} layers in the tree, config has "
-                         f"{cfg.num_layers}")
+                         f"{n_layers}")
     return layers
 
 
 def params_from_jax(tree: dict, cfg, device="cuda") -> dict:
-    """JAX ``init_model`` params (numpy leaves) -> the port's params."""
+    """JAX ``init_model`` params (numpy leaves) -> the port's params; the
+    encoder of an encoder-decoder is unstacked over its one-layer period."""
+    def layers(stack, **kw):
+        return [tree_map(lambda a: to_torch(a, device), layer)
+                for layer in unstack_layers(stack, cfg, **kw)]
+
     out = {k: tree_map(lambda a: to_torch(a, device), v)
-           for k, v in tree.items() if k != "stack"}
-    out["stack"] = [tree_map(lambda a: to_torch(a, device), layer)
-                    for layer in unstack_layers(tree["stack"], cfg)]
+           for k, v in tree.items() if k not in ("stack", "encoder")}
+    out["stack"] = layers(tree["stack"])
+    if "encoder" in tree:
+        out["encoder"] = layers(tree["encoder"], n_layers=cfg.encoder_layers,
+                                period_len=1)
     return out
 
 
 def cache_from_jax(tree: dict, cfg, device="cuda") -> List[dict]:
     """JAX caches (``init_cache`` / ``prefill`` layout, numpy leaves) -> the
-    port's per-layer cache list."""
+    port's per-layer cache list, every group of a layer ("mixer", "ffn",
+    "cross") carried across."""
     return [tree_map(lambda a: to_torch(a, device).contiguous(), layer)
             for layer in unstack_layers(tree, cfg)]
 

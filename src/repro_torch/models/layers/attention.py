@@ -15,10 +15,16 @@ Port of the single-device paths of ``repro.models.layers.attention``:
            softmax does not depend on row order). ``pos`` is a scalar (one
            position for the batch, the JAX semantics) or a [B] tensor (one
            position per slot). The cache is updated in place and returned.
+  cross    ``make_enc_cache`` projects the encoder output to the decoder's
+           read-only k, v [B, KV, Se, hd] (no RoPE); ``cross_attention_fwd``
+           attends over all of it (not causal); ``cross_attention_decode``
+           is ``ops.flash_decode`` with length ``enc_len`` for every row,
+           the mask of the JAX decode's ``attn_chunk_lse`` at
+           ``max_pos = enc_len - 1``.
 ``attn_chunk_lse`` and ``lse_combine`` are the JAX decode core in plain
 torch; the port's decode path does not call them, the tests hold
-``ops.flash_decode`` against them. Cross-attention, ring attention and the
-head-TP branches are not ported yet.
+``ops.flash_decode`` against them. Ring attention and the head-TP and
+sequence-sharded branches are not ported yet.
 """
 from __future__ import annotations
 
@@ -241,3 +247,48 @@ def _decode_out_proj(o, params, plan: ShardingPlan, dist: Dist, B):
     w_o = params["w_o"]
     y = o.reshape(B, -1).to(w_o.dtype) @ w_o
     return y[:, None, :]
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+def _single_device(plan: ShardingPlan, dist: Dist):
+    _replicated_only(plan, dist)
+    if dist.size(plan.seq_axis) > 1 or dist.size(plan.kv_axis) > 1:
+        raise NotImplementedError("sequence-sharded cross-attention is not "
+                                  "ported yet")
+
+
+def make_enc_cache(params, enc_out, cfg, plan: ShardingPlan, dist: Dist):
+    """The decoder's read-only encoder k, v [B, KV, Se, hd] from enc_out
+    [B, Se, D]."""
+    k = torch.einsum("bsd,dkh->bksh", enc_out, params["w_k"])
+    v = torch.einsum("bsd,dkh->bksh", enc_out, params["w_v"])
+    return {"k": k.contiguous(), "v": v.contiguous()}
+
+
+def cross_attention_fwd(params, x, enc_kv, cfg, plan: ShardingPlan,
+                        dist: Dist):
+    """Prefill cross-attention: x [B, S, D] decoder tokens against every
+    position of enc_kv k, v [B, KV, Se, hd]. Returns y [B, S, D]."""
+    _single_device(plan, dist)
+    B, s, _ = x.shape
+    q = (x @ params["w_q"]).reshape(B, s, -1, cfg.head_dim)
+    o = flash_attn(q, enc_kv["k"].transpose(1, 2), enc_kv["v"].transpose(1, 2),
+                   causal=False)
+    return o.reshape(B, s, -1) @ params["w_o"]
+
+
+def cross_attention_decode(params, x, enc_kv, enc_len: int, cfg,
+                           plan: ShardingPlan, dist: Dist):
+    """Decode cross-attention: x [B, 1, D] against the first `enc_len`
+    positions of enc_kv k, v [B, KV, Se, hd], every row alike. Returns
+    y [B, 1, D]."""
+    _single_device(plan, dist)
+    if enc_len < 1:
+        raise ValueError(f"cross-attention decode over enc_len {enc_len}")
+    B = x.shape[0]
+    q = (x[:, 0] @ params["w_q"]).reshape(B, -1, cfg.head_dim)
+    o = kops.flash_decode(q.contiguous(), enc_kv["k"], enc_kv["v"], enc_len)
+    return _decode_out_proj(o, params, plan, dist, B)

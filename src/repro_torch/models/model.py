@@ -1,11 +1,16 @@
 """Model API: init / prefill / decode / cache construction.
 
-Port of ``repro.models.model`` for the attention, MLA and Mamba families.
-Parameters are a dict ``{"embed", "stack": [per-layer dicts],
-"final_norm"}``; caches a list with one ``{"mixer": {...}}`` per layer:
-``k``, ``v`` for GQA (a ring buffer for a sliding-window layer), the
-latent ``c_kv``, ``k_rope`` for MLA, ``conv``, ``ssm`` for Mamba. Entry points run on ``device="cuda"`` unless told
-otherwise, and raise when there is no card.
+Port of ``repro.models.model`` for the attention, MLA, Mamba and RWKV
+families, the ViT-patch frontend and the encoder-decoder. Parameters are
+a dict ``{"embed", "stack": [per-layer dicts], "final_norm"}``, plus
+``"encoder"`` (per-layer dicts) and ``"enc_norm"`` for an encoder-decoder;
+caches a list with one ``{group: {...}}`` per decoder layer: the
+``"mixer"`` group is ``k``, ``v`` for GQA (a ring buffer for a
+sliding-window layer), the latent ``c_kv``, ``k_rope`` for MLA, ``conv``,
+``ssm`` for Mamba, ``wkv``, ``shift`` for RWKV; an RWKV layer also has an
+``"ffn"`` group (``shift``) and a decoder layer of an encoder-decoder a
+``"cross"`` group (the encoder's ``k``, ``v``). Entry points run on
+``device="cuda"`` unless told otherwise, and raise when there is no card.
 """
 from __future__ import annotations
 
@@ -30,26 +35,58 @@ def init_model(cfg: ModelConfig, plan: Optional[ShardingPlan] = None, *,
     plan = plan or null_plan("decode")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return {
+    params = {
         "embed": common.init_embedding(cfg, plan, gen),
-        "stack": tf.init_stack(cfg, plan, gen),
+        "stack": tf.init_stack(cfg, plan, gen, cross=cfg.is_encoder_decoder),
         "final_norm": common.init_rms_norm(cfg.d_model, torch.float32, dev),
     }
+    if cfg.is_encoder_decoder:
+        params["encoder"] = tf.init_stack(cfg, plan, gen,
+                                          n_layers=cfg.encoder_layers,
+                                          period=tf.ENCODER_PERIOD)
+        params["enc_norm"] = common.init_rms_norm(cfg.d_model, torch.float32, dev)
+    return params
 
 
 def _plan_dist(plan, dist, kind):
     return plan or null_plan(kind), dist or NullDist()
 
 
+def _embed_inputs(params, batch, cfg, plan: ShardingPlan, dist: Dist):
+    """x [B, S, D] from the tokens; with the ``vit_patches`` frontend and
+    ``batch["patches"]`` [B, Pf, D], patch p replaces position p for
+    p < min(Pf, S) (global positions, as the JAX function)."""
+    x = common.embed(params["embed"], batch["tokens"], cfg, plan, dist)
+    if cfg.frontend == "vit_patches" and "patches" in batch:
+        s_loc = x.shape[1]
+        start = dist.index(plan.seq_axis) * s_loc
+        window = batch["patches"][:, start:start + s_loc].to(x.dtype)
+        x = torch.cat([window, x[:, window.shape[1]:]], dim=1)
+    return x
+
+
+def _encode(params, frames, cfg, plan: ShardingPlan, dist: Dist):
+    """The encoder over frames [B, Se, D] (already embedded: the audio
+    frontend is a stub, as in JAX), in mode "train", then ``enc_norm``."""
+    x, _ = tf.apply_stack(params["encoder"], frames.to(common.dtype_of(cfg)),
+                          cfg, plan, dist, mode="train",
+                          n_layers=cfg.encoder_layers, period=tf.ENCODER_PERIOD)
+    return common.rms_norm(x, params["enc_norm"]["scale"], cfg.norm_eps)
+
+
 def prefill_logits(params, batch, cfg: ModelConfig,
                    plan: Optional[ShardingPlan] = None,
                    dist: Optional[Dist] = None):
-    """batch: {"tokens": [B, S]}. Returns (f32 logits of the last position
-    [B, 1, V_pad], caches)."""
+    """batch: {"tokens": [B, S]}, with "patches" [B, Pf, D] (vit_patches)
+    or "frames" [B, Se, D] (encoder-decoder). Returns (f32 logits of the
+    last position [B, 1, V_pad], caches)."""
     plan, dist = _plan_dist(plan, dist, "prefill")
-    x = common.embed(params["embed"], batch["tokens"], cfg, plan, dist)
+    x = _embed_inputs(params, batch, cfg, plan, dist)
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        enc_out = _encode(params, batch["frames"], cfg, plan, dist)
     x, caches = tf.apply_stack(params["stack"], x, cfg, plan, dist,
-                               mode="prefill")
+                               mode="prefill", enc_out=enc_out)
     x = common.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     return common.lm_logits(params["embed"], x[:, -1:], cfg, plan, dist), caches
 
@@ -64,36 +101,43 @@ def prefill(params, batch, cfg: ModelConfig, plan: Optional[ShardingPlan] = None
 
 def decode_logits(params, caches, tokens, pos, cfg: ModelConfig,
                   plan: Optional[ShardingPlan] = None,
-                  dist: Optional[Dist] = None):
+                  dist: Optional[Dist] = None, *, enc_len: int = 0):
     """tokens [B, 1] -> (f32 logits [B, 1, V_pad], caches). pos: a scalar
     position for the whole batch (the JAX semantics: one MoE capacity
     group over the batch) or a [B] tensor, one position per slot (each slot
-    its own capacity group, as the JAX engine's vmap). Caches are written
-    in place."""
+    its own capacity group, as the JAX engine's vmap). enc_len: the
+    encoder positions cross-attention reads (encoder-decoder only). Caches
+    are written in place."""
     plan, dist = _plan_dist(plan, dist, "decode")
     x = common.embed(params["embed"], tokens, cfg, plan, dist)
     x, caches = tf.apply_stack(params["stack"], x, cfg, plan, dist,
-                               mode="decode", caches=caches, pos=pos)
+                               mode="decode", caches=caches, pos=pos,
+                               enc_len=enc_len)
     x = common.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     return common.lm_logits(params["embed"], x, cfg, plan, dist), caches
 
 
 def decode_step(params, caches, tokens, pos, cfg: ModelConfig,
                 plan: Optional[ShardingPlan] = None,
-                dist: Optional[Dist] = None):
+                dist: Optional[Dist] = None, *, enc_len: int = 0):
     """One serving step: tokens [B, 1] -> (next token [B, 1], caches)."""
     plan, dist = _plan_dist(plan, dist, "decode")
-    logits, caches = decode_logits(params, caches, tokens, pos, cfg, plan, dist)
+    logits, caches = decode_logits(params, caches, tokens, pos, cfg, plan, dist,
+                                   enc_len=enc_len)
     return common.greedy_sample(logits, cfg, plan, dist), caches
 
 
 def init_cache(cfg: ModelConfig, plan: Optional[ShardingPlan] = None,
-               batch: int = 1, seq: int = 1, *, device="cuda") -> List[dict]:
+               batch: int = 1, seq: int = 1, enc_seq: int = 0, *,
+               device="cuda") -> List[dict]:
     """Zero-filled decode caches, per layer: k, v [batch, KV, seq, hd], or a
     ring [batch, KV, min(window, seq), hd] for a sliding-window layer; MLA's
     c_kv [batch, seq, r] and k_rope [batch, seq, rp]; Mamba's conv
-    [batch, d_conv - 1, d_inner] and ssm [batch, d_inner, d_state], the
-    latter float32 in any model dtype."""
+    [batch, d_conv - 1, d_inner] and ssm [batch, d_inner, d_state]; RWKV's
+    wkv [batch, nh, hd, hd] and shift [batch, D], with the channel mix's
+    shift [batch, D] in the "ffn" group; for an encoder-decoder, the
+    "cross" group's k, v [batch, KV, enc_seq, hd]. ssm and wkv are float32
+    in any model dtype."""
     dev = resolve_device(device)
     dt = common.dtype_of(cfg)
 
@@ -108,6 +152,10 @@ def init_cache(cfg: ModelConfig, plan: Optional[ShardingPlan] = None,
             di = mc.expand * cfg.d_model
             c = {"conv": zeros((batch, mc.d_conv - 1, di)),
                  "ssm": zeros((batch, di, mc.d_state), torch.float32)}
+        elif spec.mixer == "rwkv":
+            hd = cfg.rwkv.head_dim
+            c = {"wkv": zeros((batch, cfg.d_model // hd, hd, hd), torch.float32),
+                 "shift": zeros((batch, cfg.d_model))}
         elif cfg.attn_kind == "mla":
             c = {"c_kv": zeros((batch, seq, cfg.mla_kv_lora_rank)),
                  "k_rope": zeros((batch, seq, cfg.mla_rope_head_dim))}
@@ -117,5 +165,11 @@ def init_cache(cfg: ModelConfig, plan: Optional[ShardingPlan] = None,
                 rows = min(cfg.sliding_window, seq)
             shape = (batch, cfg.num_kv_heads, rows, cfg.head_dim)
             c = {"k": zeros(shape), "v": zeros(shape)}
-        caches.append({"mixer": c})
+        layer = {"mixer": c}
+        if spec.mixer == "rwkv":
+            layer["ffn"] = {"shift": zeros((batch, cfg.d_model))}
+        if cfg.is_encoder_decoder:
+            shape = (batch, cfg.num_kv_heads, enc_seq, cfg.head_dim)
+            layer["cross"] = {"k": zeros(shape), "v": zeros(shape)}
+        caches.append(layer)
     return caches

@@ -1,16 +1,20 @@
-"""Decoder stack: a Python loop over layers.
+"""Layer stacks: a Python loop over layers.
 
 Port of ``repro.models.transformer`` for the GQA ``attn`` and
-``attn_local`` (sliding-window) mixers, MLA (``attn_kind == "mla"``) and
-the ``mamba`` mixer, with the ``moe`` and ``dense`` FFNs. Where the JAX
-stack stores each period position's parameters stacked over periods for
-``lax.scan``, the port keeps one dict per layer, in layer order
-(``convert`` unstacks JAX trees into this layout). Layer = pre-norm
-mixer + pre-norm FFN, residual around each.
+``attn_local`` (sliding-window) mixers, MLA (``attn_kind == "mla"``), the
+``mamba`` and ``rwkv`` mixers, with the ``moe`` and ``dense`` FFNs (an rwkv
+layer's FFN is its channel mix), and the cross-attention sublayer of an
+encoder-decoder's decoder. Where the JAX stack stores each period
+position's parameters stacked over periods for ``lax.scan``, the port keeps
+one dict per layer, in layer order (``convert`` unstacks JAX trees into
+this layout). Layer = pre-norm mixer (+ pre-norm cross-attention) +
+pre-norm FFN, residual around each. The encoder is a stack of
+``ENCODER_PERIOD`` layers run in mode "train", as in JAX: so its attention
+is causal and applies RoPE, like the decoder's.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -20,33 +24,47 @@ from repro_torch.models.layers import common
 from repro_torch.models.layers import mamba as mamba_mod
 from repro_torch.models.layers import mla as mla_mod
 from repro_torch.models.layers import moe as moe_mod
+from repro_torch.models.layers import rwkv as rwkv_mod
 from repro_torch.sharding.dist import Dist
 from repro_torch.sharding.plans import ShardingPlan
 
 
+ENCODER_PERIOD = (LayerSpec(mixer="attn", ffn="dense"),)
+
+
 def check_supported(spec: LayerSpec, cfg: ModelConfig):
     attn_ok = spec.mixer in ("attn", "attn_local") and cfg.attn_kind in ("gqa", "mla")
-    if not (attn_ok or spec.mixer == "mamba") or spec.ffn == "none" \
-            or cfg.is_encoder_decoder or cfg.frontend:
+    frontend_ok = cfg.frontend in ("", "vit_patches") or (
+        cfg.frontend == "audio_frames" and cfg.is_encoder_decoder)
+    if not (attn_ok or spec.mixer in ("mamba", "rwkv")) or spec.ffn == "none" \
+            or not frontend_ok:
         raise NotImplementedError(
             f"layer {spec} of {cfg.name} is not ported yet (only GQA or MLA "
-            "attn, attn_local and mamba mixers with dense or moe FFNs, "
-            "decoder-only, no frontend)")
+            "attn, attn_local, mamba and rwkv mixers with dense or moe FFNs; "
+            "the vit_patches frontend, or audio frames into an encoder)")
 
 
 def _is_mla(spec: LayerSpec, cfg: ModelConfig) -> bool:
     return spec.mixer in ("attn", "attn_local") and cfg.attn_kind == "mla"
 
 
-def init_layer(spec: LayerSpec, cfg: ModelConfig, plan: ShardingPlan, gen):
+def init_layer(spec: LayerSpec, cfg: ModelConfig, plan: ShardingPlan, gen, *,
+               cross: bool = False):
+    """One layer's params; with `cross`, a cross-attention sublayer
+    (``norm_x``, ``cross``) between the mixer and the FFN."""
     check_supported(spec, cfg)
     dev = gen.device
     params: Dict[str, Any] = {
         "norm1": common.init_rms_norm(cfg.d_model, torch.float32, dev),
         "mixer": _init_mixer(spec, cfg, plan, gen),
-        "norm2": common.init_rms_norm(cfg.d_model, torch.float32, dev),
     }
-    if spec.ffn == "dense":
+    if cross:
+        params["norm_x"] = common.init_rms_norm(cfg.d_model, torch.float32, dev)
+        params["cross"] = attn.init_attention(cfg, plan, gen)
+    params["norm2"] = common.init_rms_norm(cfg.d_model, torch.float32, dev)
+    if spec.mixer == "rwkv":
+        params["ffn"] = rwkv_mod.init_rwkv_cm(cfg, plan, gen)
+    elif spec.ffn == "dense":
         params["ffn"] = common.init_dense_ffn(cfg, plan, gen)
     else:
         params["ffn"] = moe_mod.init_moe(cfg, plan, gen)
@@ -56,6 +74,8 @@ def init_layer(spec: LayerSpec, cfg: ModelConfig, plan: ShardingPlan, gen):
 def _init_mixer(spec: LayerSpec, cfg: ModelConfig, plan: ShardingPlan, gen):
     if spec.mixer == "mamba":
         return mamba_mod.init_mamba(cfg, plan, gen)
+    if spec.mixer == "rwkv":
+        return rwkv_mod.init_rwkv_tm(cfg, plan, gen)
     if _is_mla(spec, cfg):
         return mla_mod.init_mla(cfg, plan, gen)
     return attn.init_attention(cfg, plan, gen)
@@ -67,12 +87,15 @@ def per_slot(pos) -> bool:
 
 
 def apply_layer(spec: LayerSpec, p, x, cfg, plan: ShardingPlan, dist: Dist, *,
-                mode: str, cache=None, pos=None):
-    """mode: train | prefill | decode. Returns (x, new_cache | None).
-    Decode with per-slot positions gives each batch row its own MoE
-    capacity group, as the JAX engine's vmap over slots does."""
+                mode: str, cache=None, pos=None, enc_len: int = 0, enc_out=None):
+    """mode: train | prefill | decode. Returns (x, new_cache | None): the
+    cache groups "mixer", "ffn" (rwkv's channel mix) and "cross" (the
+    encoder's k, v, made in prefill from `enc_out`, read-only in decode over
+    `enc_len` positions). Decode with per-slot positions gives each batch
+    row its own MoE capacity group, as the JAX engine's vmap over slots
+    does."""
     check_supported(spec, cfg)
-    new_cache = None
+    new_cache: Dict[str, Any] = {}
     window = cfg.sliding_window if spec.mixer == "attn_local" else 0
     h = common.rms_norm(x, p["norm1"]["scale"], cfg.norm_eps)
     make_cache = mode == "prefill"
@@ -83,6 +106,13 @@ def apply_layer(spec: LayerSpec, p, x, cfg, plan: ShardingPlan, dist: Dist, *,
         else:
             h, c = mamba_mod.mamba_fwd(p["mixer"], h, cfg, plan, dist,
                                        make_cache=make_cache)
+    elif spec.mixer == "rwkv":
+        if mode == "decode":
+            h, c = rwkv_mod.rwkv_tm_decode(p["mixer"], h, cache["mixer"], cfg,
+                                           plan, dist)
+        else:
+            h, c = rwkv_mod.rwkv_tm_fwd(p["mixer"], h, cfg, plan, dist,
+                                        make_cache=make_cache)
     elif _is_mla(spec, cfg):
         if mode == "decode":
             h, c = mla_mod.mla_decode(p["mixer"], h, cache["mixer"], pos, cfg,
@@ -97,31 +127,67 @@ def apply_layer(spec: LayerSpec, p, x, cfg, plan: ShardingPlan, dist: Dist, *,
         h, c = attn.attention_fwd(p["mixer"], h, cfg, plan, dist,
                                   window=window, make_cache=make_cache)
     if c is not None:
-        new_cache = {"mixer": c}
+        new_cache["mixer"] = c
     x = x + h
 
+    if "cross" in p:
+        h = common.rms_norm(x, p["norm_x"]["scale"], cfg.norm_eps)
+        if mode == "decode":
+            h = attn.cross_attention_decode(p["cross"], h, cache["cross"],
+                                            enc_len, cfg, plan, dist)
+            new_cache["cross"] = cache["cross"]         # read-only
+        else:
+            enc_kv = attn.make_enc_cache(p["cross"], enc_out, cfg, plan, dist)
+            h = attn.cross_attention_fwd(p["cross"], h, enc_kv, cfg, plan, dist)
+            if make_cache:
+                new_cache["cross"] = enc_kv
+        x = x + h
+
     h = common.rms_norm(x, p["norm2"]["scale"], cfg.norm_eps)
-    if spec.ffn == "dense":
+    if spec.mixer == "rwkv":
+        if mode == "decode":
+            h, c = rwkv_mod.rwkv_cm_decode(p["ffn"], h, cache["ffn"], plan, dist)
+        else:
+            h, c = rwkv_mod.rwkv_cm_fwd(p["ffn"], h, plan, dist,
+                                        make_cache=make_cache)
+        if c is not None:
+            new_cache["ffn"] = c
+    elif spec.ffn == "dense":
         h = common.dense_ffn(p["ffn"], h, plan, dist)
     else:
         groups = x.shape[0] if mode == "decode" and per_slot(pos) else 1
         h = moe_mod.moe_ffn(p["ffn"], h, cfg, plan, dist,
                             capacity_groups=groups)
-    return x + h, new_cache
+    return x + h, (new_cache or None)
 
 
-def init_stack(cfg: ModelConfig, plan: ShardingPlan, gen) -> List[dict]:
-    return [init_layer(spec, cfg, plan, gen) for spec in cfg.layer_specs]
+def stack_specs(cfg: ModelConfig, n_layers: Optional[int] = None,
+                period: Optional[Tuple[LayerSpec, ...]] = None):
+    """The layer specs of a stack of `n_layers` (default: the config's)
+    repeating `period` (default: the config's), remainder last."""
+    period = period or cfg.period
+    n_layers = cfg.num_layers if n_layers is None else n_layers
+    reps, rem = divmod(n_layers, len(period))
+    return tuple(period) * reps + tuple(period[:rem])
+
+
+def init_stack(cfg: ModelConfig, plan: ShardingPlan, gen, *, cross: bool = False,
+               n_layers: Optional[int] = None,
+               period: Optional[Tuple[LayerSpec, ...]] = None) -> List[dict]:
+    return [init_layer(spec, cfg, plan, gen, cross=cross)
+            for spec in stack_specs(cfg, n_layers, period)]
 
 
 def apply_stack(params: List[dict], x, cfg: ModelConfig, plan: ShardingPlan,
-                dist: Dist, *, mode: str, caches=None, pos=None):
+                dist: Dist, *, mode: str, caches=None, pos=None,
+                enc_len: int = 0, enc_out=None, n_layers: Optional[int] = None,
+                period: Optional[Tuple[LayerSpec, ...]] = None):
     """caches: per-layer list (decode) or None (train/prefill; prefill
     creates them). Returns (x, new_caches | None)."""
     new_caches = []
-    for i, spec in enumerate(cfg.layer_specs):
+    for i, spec in enumerate(stack_specs(cfg, n_layers, period)):
         c_in = caches[i] if caches is not None else None
         x, c = apply_layer(spec, params[i], x, cfg, plan, dist, mode=mode,
-                           cache=c_in, pos=pos)
+                           cache=c_in, pos=pos, enc_len=enc_len, enc_out=enc_out)
         new_caches.append(c)
     return x, (new_caches if mode in ("prefill", "decode") else None)

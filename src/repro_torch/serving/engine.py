@@ -9,6 +9,13 @@ runs one batched ``decode_step`` with a [max_batch] position vector, which
 keeps each slot's attention length and MoE capacity group its own. Slots
 free as requests hit EOS or their token budget, making room for waiting
 requests.
+
+An encoder-decoder is served as the JAX engine serves it: each prefill
+encodes zero frames [1, L, D] (the audio frontend is a stub), its cross
+cache of L positions is padded with zeros to `max_seq` like every
+positional leaf, and every decode wave attends over all `max_seq` of
+them (``enc_len = max_seq``), the zero keys included. A ViT-patch model
+is served from its tokens alone, as in JAX.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
+from repro_torch.models.layers.common import dtype_of
 from repro_torch.serving import kvcache
 from repro_torch.sharding.dist import Dist, NullDist
 from repro_torch.sharding.plans import ShardingPlan, null_plan
@@ -51,8 +59,10 @@ class Engine:
         self.max_seq = max_seq
         self.eos_id = eos_id
 
+        # the JAX engine's cross-attention length: the cross cache's capacity
+        self.enc_len = max_seq if cfg.is_encoder_decoder else 0
         self.caches = M.init_cache(cfg, self.plan, max_batch, max_seq,
-                                   device=self.device)
+                                   self.enc_len, device=self.device)
         self.pos = torch.zeros((max_batch,), dtype=torch.int32, device=self.device)
         self.last_tok = torch.zeros((max_batch, 1), dtype=torch.int32,
                                     device=self.device)
@@ -106,9 +116,13 @@ class Engine:
         if not 0 < L < self.max_seq:
             raise ValueError(f"prompt length {L} not in (0, {self.max_seq})")
         tokens = torch.tensor([prompt], dtype=torch.int32, device=self.device)
+        batch = {"tokens": tokens}
+        if self.cfg.frontend == "audio_frames":
+            batch["frames"] = torch.zeros((1, L, self.cfg.d_model),
+                                          dtype=dtype_of(self.cfg),
+                                          device=self.device)
         pplan = dataclasses.replace(self.plan, kind="prefill")
-        tok, sub = M.prefill(self.params, {"tokens": tokens}, self.cfg, pplan,
-                             self.dist)
+        tok, sub = M.prefill(self.params, batch, self.cfg, pplan, self.dist)
         return tok, kvcache.pad_to_capacity(self.cfg, sub, L, self.max_seq)
 
     # ------------------------------------------------------------------
@@ -124,7 +138,8 @@ class Engine:
             return 0
         toks, self.caches = M.decode_step(self.params, self.caches,
                                           self.last_tok, self.pos, self.cfg,
-                                          self.plan, self.dist)
+                                          self.plan, self.dist,
+                                          enc_len=self.enc_len)
         self.last_tok = toks
         self.pos = self.pos + 1
         toks_host, pos_host = toks[:, 0].tolist(), self.pos.tolist()

@@ -1,7 +1,8 @@
 """KV-cache management for the serving engine.
 
 Port of ``repro.serving.kvcache``. The port's caches are a per-layer list
-of ``{group: {leaf: tensor}}`` (``group`` is "mixer"), not period-stacked
+of ``{group: {leaf: tensor}}`` (``group`` is "mixer", "ffn" for an RWKV
+layer's channel mix, "cross" for an encoder-decoder), not period-stacked
 trees, so a leaf is addressed by (layer index, group, leaf name) and its
 batch dim is always 0. This module owns where each leaf's *sequence* dim
 lives and which leaves are *recurrent* (order-dependent state that must
@@ -59,7 +60,9 @@ def classify(cfg, caches: List[dict]) -> List[dict]:
 def pad_to_capacity(cfg, caches: List[dict], from_seq: int, to_seq: int):
     """Grow every positional leaf's sequence dim from_seq -> to_seq with
     zeros (prefill produced capacity from_seq; the engine runs at to_seq).
-    Recurrent leaves (ring buffers) keep their shape whatever its size."""
+    Recurrent leaves (ring buffers) keep their shape whatever its size. A
+    cross cache whose encoder length equals from_seq (the engine encodes
+    one frame per prompt token) is padded too, as the JAX function does."""
     if to_seq < from_seq:
         raise ValueError(f"capacity {to_seq} < prefill length {from_seq}")
 

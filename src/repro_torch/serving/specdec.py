@@ -11,9 +11,13 @@ acceptance point:
   * positional cache leaves (attention K/V at absolute positions) need no
     rollback: writes beyond the accepted position are masked by the
     attention length and overwritten later (serving/kvcache.py);
-  * recurrent leaves (sliding-window ring buffers) are copied after every
+  * recurrent leaves (sliding-window ring buffers, Mamba's conv and SSM
+    state, RWKV's WKV state and both token shifts) are copied after every
     verify step, and each row's state is restored from the copy at that
     row's own acceptance point (``kvcache.select_history``).
+
+The JAX decoder passes no ``enc_len``, so neither package speculates on
+an encoder-decoder (the port's cross-attention decode raises).
 
 The emitted sequence equals plain greedy decoding for any draft quality
 when the batch accepts alike. ``generate`` commits the minimum acceptance

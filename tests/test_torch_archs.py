@@ -14,6 +14,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.configs import ARCHS as jax_archs  # noqa: E402
 from repro.configs import get_arch as jax_arch  # noqa: E402
 from repro.configs import reduced_config as jax_reduced  # noqa: E402
 from repro.models import model as JM  # noqa: E402
@@ -55,7 +56,11 @@ def prompts(n, seed=0, lengths=(3, 6, 11)):
 # configs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b"] + NEW_ARCHS)
+LATER_ARCHS = ["deepseek-67b", "minitron-8b", "rwkv6-1.6b", "internvl2-76b",
+                "seamless-m4t-medium"]
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b"] + NEW_ARCHS + LATER_ARCHS)
 def test_config_and_reduction_match_jax(arch):
     """The registry entry and its reduction are the JAX package's, field for
     field, with the derived sizes the port depends on."""
@@ -70,14 +75,21 @@ def test_config_and_reduction_match_jax(arch):
 
 
 def test_registry_and_derived_sizes():
-    assert set(ARCHS) == {"olmoe-1b-7b", "deepseek-v3", "jamba-v0.1-52b"} | set(NEW_ARCHS)
+    """The port registers the JAX package's eleven architectures."""
+    assert set(ARCHS) == set(jax_archs) and len(ARCHS) == 11
+    assert set(ARCHS) == {"olmoe-1b-7b", "deepseek-v3", "jamba-v0.1-52b"} | \
+        set(NEW_ARCHS) | set(LATER_ARCHS)
     g = get_arch("gemma3-1b")
     assert (g.n_periods, g.n_remainder) == (4, 2)
     assert [s.mixer for s in g.layer_specs].count("attn") == 4
     assert reduced_config(g).sliding_window == 8
     assert TC.padded_vocab(get_arch("granite-moe-3b-a800m")) == 49408
+    assert TC.padded_vocab(get_arch("seamless-m4t-medium")) == 256256
+    red = reduced_config(get_arch("seamless-m4t-medium"))
+    assert (red.encoder_layers, red.n_frontend_tokens) == (2, 8)
+    assert reduced_config(get_arch("internvl2-76b")).n_frontend_tokens == 8
     with pytest.raises(KeyError):
-        get_arch("rwkv6-1.6b")
+        get_arch("rwkv7-3b")
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The port's kernels at the shapes of starcoder2-3b, granite-moe-3b-a800m,
-gemma3-1b, deepseek-v3 and jamba-v0.1-52b, and the sliding-window, MLA,
-Mamba, DBO and speculative-decoding paths, on the card against the port's
-plain CPU path (``cuda`` marker; skipped
+gemma3-1b, deepseek-v3, jamba-v0.1-52b, deepseek-67b and seamless-m4t-medium,
+and the sliding-window, MLA, Mamba, RWKV, encoder-decoder, DBO and
+speculative-decoding paths, on the card against the port's plain CPU path
+(``cuda`` marker; skipped
 without a card). Like ``tests/test_torch_cuda.py`` this file imports no
 JAX, so it runs where only PyTorch is installed:
 
@@ -61,7 +62,9 @@ def clone(tree):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,kh,hd,s", [(24, 2, 128, 512),     # starcoder2, g=12
                                        (24, 8, 64, 512),      # granite, g=3
-                                       (4, 1, 256, 1024)])    # gemma3 ring, g=4
+                                       (4, 1, 256, 1024),     # gemma3 ring, g=4
+                                       (64, 8, 128, 512),     # deepseek-67b, g=8
+                                       (16, 16, 64, 512)])    # seamless, g=1
 def test_flash_decode_new_shapes(cuda, dtype, h, kh, hd, s):
     lens = [1, 63, 64, 65, s - 1, s]
     b = len(lens)
@@ -297,3 +300,66 @@ def test_sd_jamba_on_the_card_equals_greedy(cuda):
     dec = SDDecoder(cfg, params, spec_m=4, device=cuda)
     toks, _, _ = dec.generate(c, tok, 6, 11)
     assert torch.equal(torch.cat([tok, toks], dim=1), want)
+
+
+# ---------------------------------------------------------------------------
+# deepseek-67b / internvl2 (g = 8), seamless (g = 1, cross-attention), rwkv6
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_cross_shape(cuda, dtype):
+    """seamless's cross-attention decode: one int length for every row,
+    the whole padded encoder cache."""
+    b, h, hd, s = 6, 16, 64, 512
+    q, k, v = (torch.from_numpy(a).to(cuda).to(dtype) for a in
+               arrays(7, (b, h, hd), (b, h, s, hd), (b, h, s, hd)))
+    got = f32(tfd.flash_decode_cuda(q, k, v, s))
+    truth = f32(ref.flash_decode_ref(q.float(), k.float(), v.float(), s))
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, truth, atol=1e-4, rtol=1e-4)
+        return
+    err_plain = np.abs(f32(ref.flash_decode_ref(q, k, v, s)) - truth).max()
+    assert np.abs(got - truth).max() <= 1.5 * err_plain + 1e-3
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "seamless-m4t-medium"])
+def test_engine_rwkv_and_encdec_on_the_card_match_cpu(cuda, arch):
+    """Reduced rwkv6 (no kernel: the WKV scan is plain torch) and seamless
+    (flash_decode once per decoder layer for self-attention and once for
+    cross-attention, each wave) through the engine: the card's tokens
+    equal the CPU's."""
+    cfg, params = reduced(arch)
+    rng = np.random.default_rng(2)
+    reqs = [rng.integers(1, 500, n).tolist() for n in (2, 8, 11)]
+    per_wave = 2 * cfg.num_layers if cfg.is_encoder_decoder else 0
+    out = []
+    for dev, p in (("cpu", params), (cuda, on_card(params, cuda))):
+        eng = Engine(cfg, p, max_batch=2, max_seq=80, eos_id=-1, device=dev)
+        for r in reqs:
+            eng.submit(r, max_new_tokens=10)
+        m0, f0, waves = tmg.launches, tfd.launches, 0
+        while eng.queue or any(eng.live):
+            waves += eng.step() > 0
+        out.append({rid: r.generated for rid, r in eng.finished.items()})
+        if dev is cuda:
+            assert tmg.launches == m0 and tfd.launches - f0 == per_wave * waves
+    assert out[0] == out[1]
+
+
+def test_rwkv_prefill_past_a_chunk_on_the_card_matches_cpu(cuda):
+    """A 130-token prefill (past two scan chunks) and decode steps of
+    reduced rwkv6: logits and the wkv state on the card against the CPU."""
+    cfg, params = reduced("rwkv6-1.6b")
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(1, 500, (1, 130)))
+    outs = []
+    for dev, p in (("cpu", params), (cuda, on_card(params, cuda))):
+        lg, c = M.prefill_logits(p, {"tokens": prompt.to(dev)}, cfg)
+        steps = [lg.cpu()]
+        tok = lg[:, 0, :cfg.vocab_size].argmax(-1, keepdim=True)
+        for pos in range(130, 134):
+            lg, c = M.decode_logits(p, c, tok, pos, cfg)
+            steps.append(lg.cpu())
+            tok = lg[:, 0, :cfg.vocab_size].argmax(-1, keepdim=True)
+        outs.append((torch.cat(steps), c[0]["mixer"]["wkv"].cpu()))
+    for a, b in zip(*outs):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-4, rtol=1e-4)

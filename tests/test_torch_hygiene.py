@@ -25,6 +25,19 @@ def test_no_jax_or_repro_imports(path):
     assert not FORBIDDEN.findall(text), f"{path} imports jax or repro"
 
 
+def test_every_port_module_is_checked():
+    """The scan covers every module of the port, the RWKV layer and the
+    configs of the dense, RWKV, ViT-patch and encoder-decoder models among
+    them."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("models/layers/rwkv.py", "models/layers/attention.py",
+                "configs/deepseek_67b.py", "configs/minitron_8b.py",
+                "configs/rwkv6_1_6b.py", "configs/internvl2_76b.py",
+                "configs/seamless_m4t_medium.py", "serving/engine.py", "convert.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
+    assert "chip_smoke.py" in names
+
+
 def test_forbidden_pattern_catches_imports():
     for line in ("import jax", "from jax import numpy", "import repro",
                  "from repro.configs import get_arch", "  import jax.numpy as jnp"):
@@ -39,6 +52,9 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch, repro_torch.convert, repro_torch.kernels.ops\n"
             "import repro_torch.serving.engine, repro_torch.models.model\n"
             "import repro_torch.kernels.build\n"
+            "import repro_torch.models.layers.rwkv, repro_torch.serving.specdec\n"
+            "from repro_torch.configs import ARCHS\n"
+            "assert len(ARCHS) == 11\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'repro imported'\n")
