@@ -57,7 +57,19 @@ Phases, each printing its own lines before the last:
      (16 of 80 layers): B = 2, 256 patch embeddings and 64 text tokens
      through ``prefill``, then 16 decode steps; float32 parity of rwkv6 at
      2 layers (prompts of 2, 40 and 130 tokens, past two scan chunks) and
-     of seamless at 2 + 2 layers on random frames.
+     of seamless at 2 + 2 layers on random frames;
+ 13. training: ``kernel.moe_gmm.grad`` (after the kernel checks): forward
+     and backward through ``MoeGmm`` against autograd of the plain version
+     at olmoe's training shape (E=64, T=768, bf16) and an odd T in f32;
+     ``parity_f32.train`` (after ``parity_f32``): the loss and every
+     gradient of olmoe-1b-7b at 2 layers, card against CPU; then
+     ``train.olmoe-1b-7b``: the port's ``Trainer`` at published widths,
+     8 of 16 layers, 10 steps of 8 x 512 tokens (the loss must fall, every
+     expert must get a gradient, ``moe_gmm`` once per layer and step),
+     ``profile.train`` (one more step), and at 1 layer, where checkpoints
+     fit the machine's disk, ``train.resume`` (a fresh Trainer restored at
+     step 4 reaches step 10 bit for bit, under deterministic algorithms)
+     and ``train.recovery`` (failures before steps 3 and 7, 2 restarts).
 Every path sets the launch counters to 0 just before it and reads them
 just after; ``flash_decode`` must run once per GQA layer and step (never
 on MLA, Mamba or RWKV layers), once more per decoder layer with
@@ -70,8 +82,10 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -79,6 +93,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, per data sheet
 SEED = 0
+TRAIN_LAYERS = 8       # of olmoe-1b-7b's 16: peak memory under 72 GiB
+CKPT_LAYERS = 1        # for the phases that write checkpoints
 
 
 def log(phase: str, **kv):
@@ -962,7 +978,346 @@ def mla_share(torch, eng, prof, kmoe, kfd):
     return res
 
 
+# ---------------------------------------------------------------------------
+# training: the differentiable moe_gmm, f32 parity of the loss and its
+# gradients, the Trainer at published widths, exact resume and recovery
+# ---------------------------------------------------------------------------
+
+def check_moe_gmm_grad(torch, ref, kmoe, gen):
+    """Forward and backward through ``MoeGmm`` (``ops.moe_gmm`` on card
+    tensors that want gradients) against autograd of ``moe_gmm_ref``: out,
+    dx, dWg, dWu and dWd. olmoe's training shape (E=64, T=768: one capacity
+    group of 8 x 512 tokens, ceil(4096 * 8 * 1.5 / 64)) in bf16, gated
+    against the f32 truth as the forward kernel is; an odd T in f32 (the
+    CUDA-core variant), within 1e-4. At the training shape, the forward
+    kernel, the plain forward and the plain backward are timed."""
+    from repro_torch.kernels import ops
+    results = {}
+    cases = [("train", 64, math.ceil(8 * 512 * 8 * 1.5 / 64), 2048, 1024, "bfloat16", True),
+             ("odd_t_f32", 4, 37, 2048, 1024, "float32", False)]
+    for name, e, t, d, f, dt, timed in cases:
+        tdt = getattr(torch, dt)
+        args = [torch.randn(s, generator=gen, device="cuda", dtype=tdt).mul_(c)
+                for s, c in (((e, t, d), 0.3), ((e, d, f), d ** -0.5),
+                             ((e, d, f), d ** -0.5), ((e, f, d), f ** -0.5))]
+        dy = torch.randn((e, t, d), generator=gen, device="cuda", dtype=tdt)
+
+        def fwd_bwd(fn, xs, dy_):
+            leaves = [x.detach().clone().requires_grad_() for x in xs]
+            y = fn(*leaves)
+            return [y.detach()] + [g.detach() for g in torch.autograd.grad(y, leaves, dy_)]
+
+        which = kmoe.variant(tdt, d, f)
+        n0 = kmoe.launches
+        got = fwd_bwd(ops.moe_gmm, args, dy)
+        torch.cuda.synchronize()
+        if kmoe.launches != n0 + 1:
+            raise AssertionError(f"moe_gmm.grad {name}: {kmoe.launches - n0} "
+                                 "kernel launches for one forward and backward")
+        plain = fwd_bwd(ref.moe_gmm_ref, args, dy)
+        truth = fwd_bwd(ref.moe_gmm_ref, [a.float() for a in args], dy.float())
+        row = {"shape": [e, t, d, f], "dtype": dt, "variant": which, "outputs": {}}
+        for out, g, p, tr in zip(("out", "dx", "dw_gate", "dw_up", "dw_down"),
+                                 got, plain, truth):
+            err, err_truth = max_err(g, p), max_err(g, tr)
+            if dt == "float32":
+                ok = torch.allclose(g, p, atol=1e-4, rtol=1e-4)
+                rule = "f32 atol=rtol=1e-4, TF32 off"
+            else:
+                err_plain = max_err(p, tr)
+                ok = err_truth <= 1.5 * err_plain + 1e-3
+                rule = f"bf16 err vs f32 truth <= 1.5 x plain's ({err_plain:.3g}) + 1e-3"
+            if not ok or not torch.isfinite(g).all():
+                raise AssertionError(f"moe_gmm.grad {name} {out}: err {err_truth} "
+                                     f"fails {rule}")
+            row["outputs"][out] = {"max_abs_err": err, "err_vs_f32_truth": err_truth,
+                                   "max_abs": float(tr.abs().max()), "rule": rule}
+        row["max_abs_err"] = max(o["max_abs_err"] for o in row["outputs"].values())
+        if timed:
+            el = 2
+            flops = 6 * e * t * d * f
+            row["tile_plan"] = dict(zip(("nf", "mt", "n_tiles"), kmoe.tile_plan(t)))
+            row["ms"] = time_ms(torch, lambda: kmoe.moe_gmm_cuda(*args))
+            row["plain_ms"] = time_ms(torch, lambda: ref.moe_gmm_ref(*args))
+            row["bound_ms"], row["bound_by"] = bound(
+                el * (2 * e * t * d + 3 * e * d * f), flops, dt)
+            row["library_ms"] = None
+            row["tflops"] = flops / row["ms"] / 1e9
+            # the plain backward (what MoeGmm's backward runs): its own work
+            # is 12 E T D F (four products of 2 E T D F each for dx, three
+            # for the weights; the recompute of g and u is not counted)
+            row["bwd_plain_ms"] = time_ms(torch, lambda: ref.moe_gmm_bwd_ref(*args, dy), iters=11)
+            row["bwd_bound_ms"], row["bwd_bound_by"] = bound(
+                el * (3 * e * t * d + 6 * e * d * f), 12 * e * t * d * f, dt)
+        results[name] = row
+        log("kernel.moe_gmm.grad", case=name, **row)
+        del args, dy, got, plain, truth
+        torch.cuda.empty_cache()
+    return results
+
+
+def grads_of(torch, M, convert, params, batch, cfg):
+    leaves = [p.requires_grad_() for p in convert.tree_leaves(params)]
+    loss = M.train_loss(params, batch, cfg, remat=False)
+    return loss.detach(), torch.autograd.grad(loss, leaves, materialize_grads=True)
+
+
+def parity_f32_train(torch, get_arch, M, convert, arch="olmoe-1b-7b", layers=2,
+                     batch=2, seq=64):
+    """``train_loss`` and its gradients on the card against the port's CPU
+    path on the same float32 weights: `arch` at its published widths cut
+    to `layers` layers, `batch` x `seq` tokens from numpy. The loss within
+    1e-4 relative; every gradient leaf within 1e-3 of that leaf's largest
+    CPU magnitude."""
+    import numpy as np
+    full = get_arch(arch)
+    cfg = full.replace(num_layers=layers, dtype="float32")
+    t0 = time.perf_counter()
+    p_cpu = M.init_model(cfg, device="cpu", seed=SEED)
+    p_gpu = convert.tree_map(lambda t: t.to("cuda"), p_cpu)
+    tokens = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (batch, seq))
+    tokens = torch.from_numpy(tokens.astype(np.int32))
+    l_cpu, g_cpu = grads_of(torch, M, convert, p_cpu, {"tokens": tokens}, cfg)
+    l_gpu, g_gpu = grads_of(torch, M, convert, p_gpu, {"tokens": tokens.cuda()}, cfg)
+    rel = abs(l_gpu.item() - l_cpu.item()) / abs(l_cpu.item())
+    from repro_torch.training.checkpoint import flatten
+    worst, worst_key = 0.0, None
+    keys = list(flatten(p_cpu))
+    for key, a, b in zip(keys, g_gpu, g_cpu):
+        scale = float(b.abs().max())
+        r = max_err(a.cpu(), b) / scale if scale else max_err(a.cpu(), b)
+        if r > worst:
+            worst, worst_key = r, key
+    if not rel <= 1e-4 or not worst <= 1e-3:
+        raise AssertionError(f"f32 train parity: loss rel {rel}, worst gradient "
+                             f"{worst} at {worst_key} (gates 1e-4, 1e-3)")
+    res = {"arch": arch, **cut_of(cfg, full), "batch": batch, "seq": seq,
+           "loss_cpu": l_cpu.item(), "loss_card": l_gpu.item(), "loss_rel_err": rel,
+           "worst_grad_err_over_max": worst, "worst_leaf": worst_key,
+           "leaves": len(keys), "gates": {"loss_rel": 1e-4, "grad_over_max": 1e-3},
+           "seconds": time.perf_counter() - t0}
+    log("parity_f32.train", **res)
+    del p_cpu, p_gpu, g_cpu, g_gpu
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_flops(cfg, tokens: int, seq: int) -> float:
+    """Model FLOPs of one training step (PaLM's MFU convention): 6 N per
+    token, N the parameters a token's matmuls touch (attention, router, its
+    top-k experts, the LM head; not the embedding lookup), plus
+    12 L H hd S per token for attention's scores and values."""
+    n = cfg.active_param_count() - cfg.vocab_size * cfg.d_model
+    return tokens * (6 * n + 12 * cfg.num_layers * cfg.num_heads * cfg.head_dim * seq)
+
+
+def train_phase(torch, get_arch, convert, kmoe, kfd, layers, ckpt_dir="", batch=8,
+                seq=512, steps=10, ckpt_every=0, arch="olmoe-1b-7b",
+                tag="train.olmoe-1b-7b"):
+    """The port's ``Trainer`` at `arch`'s published widths, `layers` layers,
+    bf16: ``SyntheticLM`` batches of `batch` x `seq`, `steps` steps, with
+    checkpoints every `ckpt_every` into `ckpt_dir` where given. Checks: finite losses,
+    the last 3 steps' mean below the first 3's; after step 1 every expert
+    of every MoE layer has a nonzero first moment (m = 0.1 g: the kernel's
+    output carries its gradient); ``moe_gmm`` launched once per MoE layer
+    and step in its tensor-core variant. Logs the median step time over
+    steps 3-10 without the checkpoint saves, tokens/s, peak memory and
+    ``train_mfu`` (model FLOPs per step over the step time at 989 TFLOP/s
+    bf16 dense)."""
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.train_loop import TrainConfig, Trainer
+
+    class TimedTrainer(Trainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.save_s = []
+
+        def save(self):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super().save()
+            self.save_s.append(time.perf_counter() - t0)
+
+    full = get_arch(arch)
+    cfg = full.replace(num_layers=layers)
+    tc = TrainConfig(lr=1e-3, log_every=0, ckpt_every=ckpt_every, ckpt_dir=ckpt_dir,
+                     seed=SEED)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                  global_batch=batch, seed=SEED))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = TimedTrainer(cfg, tc, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reset_counts(kmoe, kfd)
+    step_s, saves_before = [], 0
+    for i in range(steps):
+        tokens = data.batch(tr.step_idx)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_step(tokens)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0 - sum(tr.save_s[saves_before:]))
+        saves_before = len(tr.save_s)
+        if i == 0:
+            silent = [f"stack/{li}/{name}/expert {e}"
+                      for li, layer in enumerate(tr.opt_state.m["stack"])
+                      if "w_gate" in layer["ffn"]
+                      for name in ("w_gate", "w_up", "w_down")
+                      for e in (layer["ffn"][name].flatten(1).abs().amax(1) == 0)
+                      .nonzero().flatten().tolist()]
+            if silent:
+                raise AssertionError(f"train: no gradient reached {silent[:8]} "
+                                     f"({len(silent)} expert weights)")
+    launches = read_counts(kmoe, kfd)
+    variants = dict(kmoe.variant_launches)
+    n_moe = kernel_layers(cfg)["moe_gmm"]
+    losses = tr.losses
+    # with remat each MoE layer's forward, and so its kernel, runs twice
+    want = n_moe * steps * (2 if tc.remat else 1)
+    if launches != {"moe_gmm": want, "flash_decode": 0} or \
+            variants["tensor_core"] != want:
+        raise AssertionError(f"train: launches {launches} ({variants}), want "
+                             f"moe_gmm {want} in the tensor-core variant")
+    if not all(math.isfinite(x) for x in losses) or \
+            not sum(losses[-3:]) < sum(losses[:3]):
+        raise AssertionError(f"train: losses {losses} not finite or not falling")
+    step_ms = 1e3 * _median(step_s[2:])
+    flops = train_flops(cfg, batch * seq, seq)
+    res = {"arch": arch, **cut_of(cfg, full), "params": n_params(tr.params),
+           "dtype": cfg.dtype, "batch": batch, "seq": seq, "steps": steps,
+           "lr": tc.lr, "init_s": init_s, "losses": losses,
+           "step_ms": [1e3 * s for s in step_s], "step_ms_median_3_to_10": step_ms,
+           "tokens_per_s": batch * seq / step_ms * 1e3,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "model_tflop_per_step": flops / 1e12,
+           "train_mfu": flops / (step_ms / 1e3) / PEAK_OPS["bfloat16"],
+           "ckpt_save_s": tr.save_s,
+           "ckpt_steps": list(range(ckpt_every, steps + 1, ckpt_every)) if ckpt_every else [],
+           "launches": launches, "moe_gmm_variant_launches": variants,
+           "expert_weights_with_gradient_step1": 3 * n_moe * cfg.moe.num_experts,
+           "deterministic_algorithms": torch.are_deterministic_algorithms_enabled()}
+    log(tag, **res)
+    return res, tr
+
+
+def resume_phase(torch, convert, tr, data_cfg, at=4):
+    """A fresh ``Trainer`` of `tr`'s config restores step `at` from `tr`'s
+    checkpoints and trains, saving none, to `tr`'s last step; its params,
+    moments and losses must equal `tr`'s bit for bit. Both runs need
+    deterministic algorithms: without them the embedding's backward and the
+    backward of the combine's gather accumulate repeated indices with
+    atomics (and the dispatch's ``index_add_`` adds with them), in an order
+    that changes from run to run."""
+    import dataclasses
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.train_loop import Trainer
+    want = [t.detach().cpu() for t in convert.tree_leaves(
+        {"params": tr.params, "m": tr.opt_state.m, "v": tr.opt_state.v})]
+    losses, n, cfg, tc = list(tr.losses), tr.step_idx, tr.cfg, tr.tc
+    tr.params = tr.opt_state = None
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tr2 = Trainer(cfg, dataclasses.replace(tc, ckpt_every=0), device="cuda")
+    got_at = tr2.restore(at)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    tr2.run(SyntheticLM(data_cfg), n, log=lambda s: None)
+    got = [t.detach().cpu() for t in convert.tree_leaves(
+        {"params": tr2.params, "m": tr2.opt_state.m, "v": tr2.opt_state.v})]
+    differ = sum(not torch.equal(a, b) for a, b in zip(got, want))
+    if got_at != at or differ or tr2.losses != losses[at:]:
+        raise AssertionError(f"train.resume: restored {got_at}; {differ} of "
+                             f"{len(want)} leaves differ; losses {tr2.losses} "
+                             f"against {losses[at:]}")
+    res = {"arch": cfg.name, "layers": cfg.num_layers, "restored_step": got_at,
+           "to_step": n, "leaves": len(want),
+           "bitwise_equal": True, "losses": tr2.losses, "restore_s": restore_s,
+           "deterministic_algorithms": torch.are_deterministic_algorithms_enabled()}
+    log("train.resume", **res)
+    return res, tr2
+
+
+def profile_train_step(torch, tr, data_cfg, tag="profile.train"):
+    """Device time by kernel over one more training step of `tr`, against
+    the step's unprofiled wall time (the next step's): the device's idle
+    share of a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.training.data import SyntheticLM
+    data = SyntheticLM(data_cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.train_step(data.batch(tr.step_idx))
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tr.train_step(data.batch(tr.step_idx))
+        torch.cuda.synchronize()
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = evt.self_cuda_time_total
+        rows.append((dev_us / 1e3, evt.count, evt.key[:90]))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    span, kbusy, n = call_times(prof, *KERNEL_NAMES["moe_gmm"])
+    # every kernel by kind, first match wins: the port's kernel, cuBLAS's
+    # products, the slot assignment's cumulative sum, the backward of
+    # gathers (embedding, combine), and all other elementwise and copy work
+    kinds = {"moe_gmm": ("moe_gmm",), "cublas": ("nvjet", "gemm", "cutlass", "sm90_"),
+             "cumsum": ("scan",), "index_backward": ("indexing_backward", "index_put"),
+             "elementwise_and_copies": ("",)}
+    by_kind = dict.fromkeys(kinds, 0.0)
+    for ms, _, key in rows:
+        by_kind[next(k for k, pats in kinds.items() if any(q in key for q in pats))] += ms
+    res = {"step_ms_unprofiled": wall_ms, "device_busy_ms": busy,
+           "idle_share": 1 - busy / wall_ms, "kernels": sum(r[1] for r in rows),
+           "device_ms_by_kind": by_kind,
+           "moe_gmm": {"span_ms": span, "kernels_busy_ms": kbusy, "calls": n},
+           "top": [{"ms": r[0], "calls": r[1], "kernel": r[2]} for r in rows[:16]]}
+    log(tag, **res)
+    return res
+
+
+def recovery_phase(torch, get_arch, ckpt_dir, layers, batch=8, seq=512, steps=10,
+                   arch="olmoe-1b-7b"):
+    """``run_with_recovery`` with failures injected before steps 3 and 7 and
+    checkpoints every 4 steps: 2 restarts (to steps 0 and 4), 10 steps
+    completed, at `arch`'s published widths cut to `layers` layers."""
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.fault_tolerance import FailureInjector, run_with_recovery
+    from repro_torch.training.train_loop import TrainConfig, Trainer
+    full = get_arch(arch)
+    cfg = full.replace(num_layers=layers)
+    tr = Trainer(cfg, TrainConfig(lr=1e-3, log_every=0, ckpt_every=4,
+                                  ckpt_dir=ckpt_dir, seed=SEED), device="cuda")
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                  global_batch=batch, seed=SEED))
+    inj = FailureInjector(fail_at=[3, 7])
+    t0 = time.perf_counter()
+    rep = run_with_recovery(tr, data, steps, injector=inj)
+    torch.cuda.synchronize()
+    if rep.restarts != 2 or rep.completed_steps != steps or inj.fired != [3, 7] \
+            or not all(math.isfinite(x) for x in rep.losses):
+        raise AssertionError(f"train.recovery: {rep}")
+    res = {"arch": arch, **cut_of(cfg, full), "batch": batch, "seq": seq,
+           "restarts": rep.restarts, "completed_steps": rep.completed_steps,
+           "steps_run": len(rep.losses), "recovery_log": rep.recovery_log,
+           "seconds": time.perf_counter() - t0}
+    log("train.recovery", **res)
+    return res
+
+
 def main() -> int:
+    # cuBLAS is deterministic on one stream only with a fixed workspace; the
+    # training phases run under torch.use_deterministic_algorithms, which
+    # requires this before the first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1016,8 +1371,12 @@ def main() -> int:
     gen.manual_seed(SEED)
     moe = phase("kernel.moe_gmm", check_moe_gmm, torch, ref, kmoe, gen)
     fd = phase("kernel.flash_decode", check_flash_decode, torch, F, ref, kfd, gen)
+    grad = phase("kernel.moe_gmm.grad", check_moe_gmm_grad, torch, ref, kmoe, gen)
     parity = {"olmoe-1b-7b": phase("parity_f32", parity_f32, torch, get_arch, M,
                                    kvcache, convert)}
+    free()
+    parity_train = phase("parity_f32.train", parity_f32_train, torch, get_arch, M,
+                         convert)
     free()
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -1154,6 +1513,37 @@ def main() -> int:
     parity[sm] = phase(f"parity_f32.{sm}", parity_f32, torch, get_arch, M, kvcache,
                        convert, arch=sm, layers=2)
     free()
+
+    # training at published widths: olmoe-1b-7b cut to 8 of 16 layers
+    # (3.56 B params; bf16 params and grads, f32 accumulator, m and v:
+    # ~57 GB), 10 steps of 8 x 512 tokens, and one more step profiled
+    from repro_torch.training.data import DataConfig
+    train, tr = phase("train.olmoe-1b-7b", train_phase, torch, get_arch, convert,
+                      kmoe, kfd, layers=TRAIN_LAYERS)
+    data_cfg = DataConfig(vocab_size=tr.cfg.vocab_size, seq_len=512, global_batch=8,
+                          seed=SEED)
+    prof_train = phase("profile.train", profile_train_step, torch, tr, data_cfg)
+    del tr
+    free()
+    # exact resume and recovery at published widths, 1 layer: a checkpoint
+    # (bf16 params, f32 m and v) of 8 layers is 34 GB, and a call may write
+    # 45 GiB to its disk in all; these phases write five of 6.3 GB. The
+    # uninterrupted run and the resumed one run under deterministic
+    # algorithms, so that they can be compared bit for bit
+    torch.use_deterministic_algorithms(True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt") as tmp:
+        resume_run, tr = phase("train.resume_run", train_phase, torch, get_arch, convert,
+                               kmoe, kfd, layers=CKPT_LAYERS, ckpt_dir=tmp, ckpt_every=4,
+                               tag="train.resume_run")
+        resume, tr2 = phase("train.resume", resume_phase, torch, convert, tr, data_cfg)
+        del tr, tr2
+        free()
+    torch.use_deterministic_algorithms(False)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt") as tmp:
+        recovery = phase("train.recovery", recovery_phase, torch, get_arch, tmp,
+                         layers=CKPT_LAYERS)
+    free()
+
     floor_ms = event_floor_ms(torch)
     log("timing_floor", empty_call_ms=floor_ms)
 
@@ -1162,6 +1552,7 @@ def main() -> int:
                         "dbo (first step)": dbo_res["launches_first_step"],
                         f"dbo.{ds} (first step)": dbo_ds["launches_first_step"],
                         f"prefill_patches.{vl} (decode)": patches["launches"],
+                        "train.olmoe-1b-7b": train["launches"],
                         **{f"specdec.{a}.{d}": r[d]["launches"]
                            for a, r in sd.items() for d in ("heads", "oracle")}}
     log("launches_by_path", **launches_by_path)
@@ -1193,6 +1584,9 @@ def main() -> int:
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                         "other_timed_shapes": cases})
+    kernels[0]["training"] = {k: grad["train"][k] for k in (
+        "shape", "ms", "plain_ms", "bound_ms", "bound_by", "bwd_plain_ms",
+        "bwd_bound_ms", "max_abs_err")}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
@@ -1200,6 +1594,9 @@ def main() -> int:
          "parity_f32_max_abs_logit_err": parity, "main_path": main_res,
          "main_paths": others, "dbo": dbo_res, f"dbo.{ds}": dbo_ds, "specdec": sd,
          "mla_share": mla, f"prefill_patches.{vl}": patches,
+         "moe_gmm_grad": grad, "parity_f32_train": parity_train, "train": train,
+         "train_resume_run": resume_run, "train_resume": resume,
+         "profile_train": prof_train, "train_recovery": recovery,
          "timing_floor_ms": floor_ms, "phase_wall_s": walls,
          "profile": profiles, "kernels": kernels}, indent=1))
     print(smi)

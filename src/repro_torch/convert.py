@@ -21,12 +21,22 @@ from repro_torch import resolve_device
 
 
 def tree_map(fn: Callable, tree: Any) -> Any:
-    """Apply `fn` to every leaf of a tree of dicts, lists and tuples."""
+    """Apply `fn` to every leaf of a tree of dicts, lists, tuples and named
+    tuples."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of `tree` in ``tree_map``'s order."""
+    out: List[Any] = []
+    tree_map(out.append, tree)
+    return out
 
 
 def to_torch(a: np.ndarray, device="cuda") -> torch.Tensor:

@@ -14,8 +14,10 @@ shape alone, never on failure:
   must not pass through TF32 tensor cores.
 
 Its plain version is ``ref.moe_gmm_ref``; ``ops.moe_gmm`` picks between
-them by device. ``variant_launches`` counts each variant's launched calls
-and ``launches`` their total, in this process.
+them by device and sends every CUDA call through ``MoeGmm``, the
+differentiable form. ``variant_launches`` counts each variant's launched
+calls and ``launches`` their total, in this process: forward launches only,
+so a layer run again by activation checkpointing counts twice.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.ref import moe_gmm_bwd_ref
 
 NAME = "moe_gmm"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -114,6 +117,31 @@ def moe_gmm_cuda(x, w_gate, w_up, w_down):
     launches += 1
     variant_launches[which] += 1
     return out
+
+
+class MoeGmm(torch.autograd.Function):
+    """``moe_gmm_cuda`` with a gradient: training runs the expert FFN's
+    forward in the CUDA kernel. The kernel writes into tensors from
+    ``torch.empty``, which carry no graph, so without this Function the
+    expert weights and the tokens routed to them would get no gradient,
+    and nothing would say so.
+
+    The backward is ``ref.moe_gmm_bwd_ref``, plain batched products: the
+    JAX package has no backward kernel either (no ``custom_vjp`` around
+    ``moe_gmm_pallas``; its gradient is autodiff of the oracle's products,
+    outside any Pallas kernel), so there is no TPU kernel to port for it
+    yet. The forward saves only its inputs (x and the weights, alive
+    anyway); the backward recomputes g and u, which saves 2·E·T·F
+    elements per layer for two more products."""
+
+    @staticmethod
+    def forward(ctx, x, w_gate, w_up, w_down):
+        ctx.save_for_backward(x, w_gate, w_up, w_down)
+        return moe_gmm_cuda(x, w_gate, w_up, w_down)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return moe_gmm_bwd_ref(*ctx.saved_tensors, dy.contiguous())
 
 
 def reset_counts() -> None:

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.flash_decode import flash_decode_cuda
-from repro_torch.kernels.moe_gmm import moe_gmm_cuda
+from repro_torch.kernels.moe_gmm import MoeGmm
 
 
 def _on_cpu(t) -> bool:
@@ -17,10 +17,13 @@ def _on_cpu(t) -> bool:
 
 
 def moe_gmm(x, w_gate, w_up, w_down):
-    """x: [E, T, D]; w_gate/w_up: [E, D, F]; w_down: [E, F, D] -> [E, T, D]."""
+    """x: [E, T, D]; w_gate/w_up: [E, D, F]; w_down: [E, F, D] -> [E, T, D].
+    On CUDA tensors the kernel, inside ``MoeGmm`` whether or not a gradient
+    is wanted; on CPU tensors the plain version, which autograd
+    differentiates as it is."""
     if _on_cpu(x):
         return kref.moe_gmm_ref(x, w_gate, w_up, w_down)
-    return moe_gmm_cuda(x, w_gate, w_up, w_down)
+    return MoeGmm.apply(x, w_gate, w_up, w_down)
 
 
 def flash_decode(q, k, v, length):

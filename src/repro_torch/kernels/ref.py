@@ -38,3 +38,25 @@ def flash_decode_ref(q, k, v, length):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgs,bhsd->bhgd", p, v.float())
     return o.reshape(B, H, hd).to(q.dtype)
+
+
+def moe_gmm_bwd_ref(x, w_gate, w_up, w_down, dy):
+    """The gradient of ``moe_gmm_ref`` as written: dy [E, T, D] ->
+    (dx, dw_gate, dw_up, dw_down), each in its input's shape and dtype.
+    g and u are recomputed from x, not saved by the forward; the cast
+    chain of the forward (silu in f32, rounded to x.dtype, times u) is
+    transposed step by step, as autodiff of the oracle does."""
+    g = torch.einsum("etd,edf->etf", x, w_gate)
+    u = torch.einsum("etd,edf->etf", x, w_up)
+    gf = g.float()
+    sig = torch.sigmoid(gf)
+    a = F.silu(gf).to(x.dtype)                          # the forward's h / u
+    dw_down = torch.einsum("etf,etd->efd", a * u, dy)
+    dh = torch.einsum("etd,efd->etf", dy, w_down)
+    du = dh * a
+    dg = ((dh * u).float() * (sig * (1 + gf * (1 - sig)))).to(x.dtype)
+    dx = torch.einsum("etf,edf->etd", dg, w_gate) \
+        + torch.einsum("etf,edf->etd", du, w_up)
+    dw_gate = torch.einsum("etd,etf->edf", x, dg)
+    dw_up = torch.einsum("etd,etf->edf", x, du)
+    return dx, dw_gate, dw_up, dw_down

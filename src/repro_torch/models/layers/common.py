@@ -1,9 +1,11 @@
 """Shared layer primitives: norms, RoPE, dense SwiGLU FFN, vocab-parallel
-embedding and LM head, greedy sampling.
+embedding, LM head and cross entropy, greedy sampling.
 
 Port of ``repro.models.layers.common``. Every function takes the pair
 (plan, dist) where the JAX one does, so a later multi-device slice can
-shard them unchanged. Weight layout: matmul weights are stored [in, out].
+shard them unchanged. ``fsdp_gather`` has no counterpart yet: on one
+device it is the identity, and the sharded form waits for the multi-device
+``Dist``. Weight layout: matmul weights are stored [in, out].
 Init functions draw from an explicit ``torch.Generator`` onto an explicit
 device.
 """
@@ -128,6 +130,28 @@ def lm_logits(params, x, cfg, plan: ShardingPlan, dist: Dist):
     r = dist.index(plan.vocab_axis)
     ids = r * v_loc + torch.arange(v_loc, device=x.device)
     return torch.where(ids < cfg.vocab_size, logits, -torch.inf)
+
+
+def xent_per_token(logits, labels, plan: ShardingPlan, dist: Dist):
+    """Cross entropy of each position without the full-vocab logits on any
+    rank: logits [B, T, V_loc] f32 (vocab-sharded, padded ids at -inf, so
+    they get no gradient), labels [B, T] global ids -> [B, T]. The max is
+    detached (JAX's ``stop_gradient``): subtracting it is numerics only."""
+    v_loc = logits.shape[-1]
+    r = dist.index(plan.vocab_axis)
+    m = dist.pmax(logits.detach().amax(dim=-1), plan.vocab_axis)           # [B, T]
+    sumexp = dist.psum(torch.exp(logits - m[..., None]).sum(dim=-1),
+                       plan.vocab_axis)                                     # [B, T]
+    local = labels.long() - r * v_loc
+    in_range = (local >= 0) & (local < v_loc)
+    picked = torch.gather(logits, -1, local.clamp(0, v_loc - 1)[..., None])[..., 0]
+    label_logit = dist.psum(torch.where(in_range, picked, 0.0), plan.vocab_axis)
+    return torch.log(sumexp) + m - label_logit
+
+
+def vocab_parallel_xent(logits, labels, cfg, plan: ShardingPlan, dist: Dist):
+    """Mean cross entropy over every position (scalar, replicated)."""
+    return xent_per_token(logits, labels, plan, dist).mean()
 
 
 def greedy_sample(logits, cfg, plan: ShardingPlan, dist: Dist):

@@ -73,10 +73,19 @@ def slot_assignment(idx, e_pad: int, cap: int):
     return slot.to(torch.int32), slot < cap
 
 
+def aux_load_balance_loss(probs, idx, n_real: int):
+    """Switch-transformer load-balance loss over the real experts:
+    probs [T, E], idx [T, k] -> scalar f32."""
+    onehot = F.one_hot(idx, probs.shape[-1]).float().sum(dim=1)          # [T, E]
+    return n_real * torch.sum(onehot.mean(dim=0) * probs.mean(dim=0))
+
+
 def moe_ffn(params, x, cfg, plan: ShardingPlan, dist: Dist, *,
-            capacity_groups: int = 1):
+            capacity_groups: int = 1, collect_aux: bool = False):
     """x: [B, T, D]. Tokens split into `capacity_groups` equal groups along
-    the flattened B*T axis, each with its own capacity. Returns y [B, T, D]."""
+    the flattened B*T axis, each with its own capacity. Returns y [B, T, D],
+    or (y, aux) with `collect_aux`: the load-balance loss over all B*T
+    tokens, as the JAX layer returns it (training runs one group)."""
     m = cfg.moe
     B, t, d = x.shape
     n_tok = B * t
@@ -90,7 +99,7 @@ def moe_ffn(params, x, cfg, plan: ShardingPlan, dist: Dist, *,
     cap = capacity(n_tok // G, m.experts_per_token, e_pad, m.capacity_factor)
 
     logits = xt.float() @ params["router"]
-    gates, idx, _ = route(logits, m.experts_per_token, m.num_experts)
+    gates, idx, probs = route(logits, m.experts_per_token, m.num_experts)
     k = idx.shape[-1]
     slot, keep = slot_assignment(idx.reshape(G, n_tok // G, k), e_pad, cap)
     slot, keep = slot.reshape(n_tok, k), keep.reshape(n_tok, k)
@@ -116,4 +125,6 @@ def moe_ffn(params, x, cfg, plan: ShardingPlan, dist: Dist, *,
         sh = swiglu(x, params["w_shared_gate"], params["w_shared_up"],
                     params["w_shared_down"])
         y = y + dist.psum(sh, plan.tp_axis)
+    if collect_aux:
+        return y, aux_load_balance_loss(probs, idx, m.num_experts)
     return y

@@ -1,4 +1,4 @@
-"""Model API: init / prefill / decode / cache construction.
+"""Model API: init / train loss / prefill / decode / cache construction.
 
 Port of ``repro.models.model`` for the attention, MLA, Mamba and RWKV
 families, the ViT-patch frontend and the encoder-decoder. Parameters are
@@ -72,6 +72,51 @@ def _encode(params, frames, cfg, plan: ShardingPlan, dist: Dist):
                           cfg, plan, dist, mode="train",
                           n_layers=cfg.encoder_layers, period=tf.ENCODER_PERIOD)
     return common.rms_norm(x, params["enc_norm"]["scale"], cfg.norm_eps)
+
+
+def train_loss(params, batch, cfg: ModelConfig, plan: Optional[ShardingPlan] = None,
+               dist: Optional[Dist] = None, *, remat: bool = True):
+    """batch: tokens [B, S] (+ "patches" or "frames"). The global-mean LM
+    loss: each position predicts the next token, the last position is
+    masked; with experts, plus ``router_aux_loss_coef`` times the
+    load-balance loss averaged over the layers. A scalar f32 tensor."""
+    plan, dist = _plan_dist(plan, dist, "train")
+    if plan.fsdp_axis is not None:
+        raise NotImplementedError("FSDP needs the multi-device Dist, not ported yet")
+    x = _embed_inputs(params, batch, cfg, plan, dist)
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        enc_out = _encode(params, batch["frames"], cfg, plan, dist)
+    x, _, aux = tf.apply_stack(params["stack"], x, cfg, plan, dist, mode="train",
+                               collect_aux=True, remat=remat, enc_out=enc_out)
+    x = common.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    logits = common.lm_logits(params["embed"], x, cfg, plan, dist)
+
+    tokens = batch["tokens"]
+    B, s_loc = tokens.shape
+    seq_ax = plan.seq_axis
+    n_seq = dist.size(seq_ax)
+    # labels = next token; the first token of the next sequence shard comes
+    # by ring shift, and the last global position is masked
+    nxt = dist.roll(tokens[:, :1], seq_ax, shift=-1) if n_seq > 1 \
+        else torch.zeros_like(tokens[:, :1])
+    labels = torch.cat([tokens[:, 1:], nxt], dim=1)
+    gpos = dist.index(seq_ax) * s_loc + torch.arange(s_loc, device=tokens.device)
+    w = (gpos < s_loc * n_seq - 1).float()[None, :]
+    token_loss = common.xent_per_token(logits, labels, plan, dist) * w
+
+    reduce_axes = tuple(a for a in (plan.batch_axes or ()) + ((seq_ax,) if seq_ax else ())
+                        if a)
+    loss_sum, cnt = token_loss.sum(), w.expand_as(token_loss).sum()
+    for ax in reduce_axes:
+        loss_sum, cnt = dist.psum(loss_sum, ax), dist.psum(cnt, ax)
+    loss = loss_sum / torch.clamp(cnt, min=1.0)
+    if cfg.moe is not None:
+        aux_mean = aux / max(cfg.num_layers, 1)
+        for ax in reduce_axes:
+            aux_mean = dist.psum(aux_mean, ax) / dist.size(ax)
+        loss = loss + cfg.moe.router_aux_loss_coef * aux_mean
+    return loss
 
 
 def prefill_logits(params, batch, cfg: ModelConfig,

@@ -17,6 +17,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models.layers import attention as attn
@@ -87,15 +88,18 @@ def per_slot(pos) -> bool:
 
 
 def apply_layer(spec: LayerSpec, p, x, cfg, plan: ShardingPlan, dist: Dist, *,
-                mode: str, cache=None, pos=None, enc_len: int = 0, enc_out=None):
+                mode: str, cache=None, pos=None, enc_len: int = 0, enc_out=None,
+                collect_aux: bool = False):
     """mode: train | prefill | decode. Returns (x, new_cache | None): the
     cache groups "mixer", "ffn" (rwkv's channel mix) and "cross" (the
     encoder's k, v, made in prefill from `enc_out`, read-only in decode over
     `enc_len` positions). Decode with per-slot positions gives each batch
     row its own MoE capacity group, as the JAX engine's vmap over slots
-    does."""
+    does. With `collect_aux`, (x, new_cache | None, aux): a MoE layer's
+    load-balance loss, 0.0 for any other layer."""
     check_supported(spec, cfg)
     new_cache: Dict[str, Any] = {}
+    aux = 0.0
     window = cfg.sliding_window if spec.mixer == "attn_local" else 0
     h = common.rms_norm(x, p["norm1"]["scale"], cfg.norm_eps)
     make_cache = mode == "prefill"
@@ -157,7 +161,11 @@ def apply_layer(spec: LayerSpec, p, x, cfg, plan: ShardingPlan, dist: Dist, *,
     else:
         groups = x.shape[0] if mode == "decode" and per_slot(pos) else 1
         h = moe_mod.moe_ffn(p["ffn"], h, cfg, plan, dist,
-                            capacity_groups=groups)
+                            capacity_groups=groups, collect_aux=collect_aux)
+        if collect_aux:
+            h, aux = h
+    if collect_aux:
+        return x + h, (new_cache or None), aux
     return x + h, (new_cache or None)
 
 
@@ -180,14 +188,36 @@ def init_stack(cfg: ModelConfig, plan: ShardingPlan, gen, *, cross: bool = False
 
 def apply_stack(params: List[dict], x, cfg: ModelConfig, plan: ShardingPlan,
                 dist: Dist, *, mode: str, caches=None, pos=None,
-                enc_len: int = 0, enc_out=None, n_layers: Optional[int] = None,
+                enc_len: int = 0, enc_out=None, collect_aux: bool = False,
+                remat: bool = False, n_layers: Optional[int] = None,
                 period: Optional[Tuple[LayerSpec, ...]] = None):
     """caches: per-layer list (decode) or None (train/prefill; prefill
-    creates them). Returns (x, new_caches | None)."""
-    new_caches = []
-    for i, spec in enumerate(stack_specs(cfg, n_layers, period)):
-        c_in = caches[i] if caches is not None else None
-        x, c = apply_layer(spec, params[i], x, cfg, plan, dist, mode=mode,
-                           cache=c_in, pos=pos, enc_len=enc_len, enc_out=enc_out)
-        new_caches.append(c)
-    return x, (new_caches if mode in ("prefill", "decode") else None)
+    creates them). Returns (x, new_caches | None), or with `collect_aux`
+    (x, new_caches | None, aux): the MoE layers' load-balance losses
+    summed. `remat` recomputes each whole period's activations in the
+    backward (``torch.utils.checkpoint``, as JAX checkpoints the scan body
+    over periods); the remainder layers keep theirs, as in JAX."""
+    if remat and mode != "train":
+        raise ValueError("remat recomputes training activations; it keeps no cache")
+    specs = stack_specs(cfg, n_layers, period)
+    n_pos = len(period or cfg.period)
+    n_remat = len(specs) // n_pos * n_pos if remat else 0
+
+    def run(lo, hi, x, aux):
+        new = []
+        for i in range(lo, hi):
+            c_in = caches[i] if caches is not None else None
+            x, c, a = apply_layer(specs[i], params[i], x, cfg, plan, dist,
+                                  mode=mode, cache=c_in, pos=pos, enc_len=enc_len,
+                                  enc_out=enc_out, collect_aux=True)
+            aux = aux + a
+            new.append(c)
+        return x, aux, new
+
+    aux, new_caches = 0.0, []
+    for lo in range(0, n_remat, n_pos):
+        x, aux = checkpoint(lambda x_, a_, lo=lo: run(lo, lo + n_pos, x_, a_)[:2],
+                               x, aux, use_reentrant=False)
+    x, aux, new_caches = run(n_remat, len(specs), x, aux)
+    out = new_caches if mode in ("prefill", "decode") else None
+    return (x, out, aux) if collect_aux else (x, out)

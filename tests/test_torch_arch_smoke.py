@@ -1,9 +1,8 @@
 """Per-architecture smoke tests of the port, mirroring
 ``tests/test_arch_smoke.py`` over all eleven architectures: the reduced
-config of each family, bf16, prefill and one decode step on the CPU,
-asserting shapes, token ranges and the cache structure, and each
-published config's parameter count. ``test_train_loss_finite`` has no
-counterpart until the port trains."""
+config of each family, bf16, the training loss, prefill and one decode
+step on the CPU, asserting shapes, finiteness, token ranges and the cache
+structure, and each published config's parameter count."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -27,6 +26,16 @@ def _batch(cfg, gen):
 def _structure(caches):
     return [{g: {n: t.dtype for n, t in leaves.items()} for g, leaves in layer.items()}
             for layer in caches]
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_train_loss_finite(arch):
+    cfg = reduced_config(get_arch(arch))
+    gen = torch.Generator().manual_seed(0)
+    params = M.init_model(cfg, device="cpu", seed=0)
+    loss = M.train_loss(params, _batch(cfg, gen), cfg, remat=False)
+    assert loss.shape == ()
+    assert torch.isfinite(loss), f"{arch}: loss={loss}"
 
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no file of it, nor chip_smoke.py, imports
-JAX or the JAX package; importing it loads no JAX; and its entry points
-refuse to run on the CPU unless asked to."""
+JAX, the JAX package or ``ml_dtypes`` (which the card's machine lacks);
+importing it loads none of them; and its entry points refuse to run on the
+CPU unless asked to."""
 import os
 import re
 import subprocess
@@ -16,31 +17,34 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_torch)|"
-    r"from\s+repro(\.|\s)(?!_torch))", re.M)
+    r"from\s+repro(\.|\s)(?!_torch)|import\s+ml_dtypes\b|from\s+ml_dtypes\b)",
+    re.M)
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_imports(path):
     text = path.read_text()
-    assert not FORBIDDEN.findall(text), f"{path} imports jax or repro"
+    assert not FORBIDDEN.findall(text), f"{path} imports jax, repro or ml_dtypes"
 
 
 def test_every_port_module_is_checked():
-    """The scan covers every module of the port, the RWKV layer and the
-    configs of the dense, RWKV, ViT-patch and encoder-decoder models among
-    them."""
+    """The scan covers every module of the port, the RWKV layer, the
+    configs of the dense, RWKV, ViT-patch and encoder-decoder models and
+    the training loop and checkpoints among them."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in ("models/layers/rwkv.py", "models/layers/attention.py",
                 "configs/deepseek_67b.py", "configs/minitron_8b.py",
                 "configs/rwkv6_1_6b.py", "configs/internvl2_76b.py",
-                "configs/seamless_m4t_medium.py", "serving/engine.py", "convert.py"):
+                "configs/seamless_m4t_medium.py", "serving/engine.py", "convert.py",
+                "training/train_loop.py", "training/checkpoint.py"):
         assert f"src/repro_torch/{mod}" in names, mod
     assert "chip_smoke.py" in names
 
 
 def test_forbidden_pattern_catches_imports():
     for line in ("import jax", "from jax import numpy", "import repro",
-                 "from repro.configs import get_arch", "  import jax.numpy as jnp"):
+                 "from repro.configs import get_arch", "  import jax.numpy as jnp",
+                 "import ml_dtypes", "from ml_dtypes import bfloat16"):
         assert FORBIDDEN.search(line), line
     for line in ("import repro_torch", "from repro_torch.configs import x",
                  "import torch"):
@@ -53,9 +57,11 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.serving.engine, repro_torch.models.model\n"
             "import repro_torch.kernels.build\n"
             "import repro_torch.models.layers.rwkv, repro_torch.serving.specdec\n"
+            "import repro_torch.training.fault_tolerance, repro_torch.training.compression\n"
             "from repro_torch.configs import ARCHS\n"
             "assert len(ARCHS) == 11\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
+            "assert 'ml_dtypes' not in sys.modules, 'ml_dtypes imported'\n"
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'repro imported'\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
