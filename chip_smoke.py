@@ -2,6 +2,7 @@
 """Run the PyTorch port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --sharded-only    # phase 14's sharded serving alone
 
 Phases, each printing its own lines before the last:
   1. environment: torch/CUDA versions and the card's name and power limit;
@@ -70,6 +71,15 @@ Phases, each printing its own lines before the last:
      fit the machine's disk, ``train.resume`` (a fresh Trainer restored at
      step 4 reaches step 10 bit for bit, under deterministic algorithms)
      and ``train.recovery`` (failures before steps 3 and 7, 2 restarts).
+ 14. sharded serving (after ``specdec.olmoe-1b-7b``): ``kernel.flash_decode_lse``
+     (after the other kernels) holds the (o, m, l) form of ``flash_decode``
+     against its plain version at one rank's shard (B 4, S_loc 256 of 512,
+     H = KH = 16, hd 128), with an empty shard; ``sharded.olmoe-1b-7b``
+     serves full olmoe-1b-7b through ``launch.serve`` on a 2x2 mesh (nccl
+     with a card per rank, else four ranks on card 0 over gloo): bf16, the
+     fp8 dispatch, and f32 at 8 layers, each held against the single-device
+     port fed the same tokens, with per-rank step times, peak memory,
+     launches and collective bytes per step by kind (``CountingDist``).
 Every path sets the launch counters to 0 just before it and reads them
 just after; ``flash_decode`` must run once per GQA layer and step (never
 on MLA, Mamba or RWKV layers), once more per decoder layer with
@@ -305,6 +315,12 @@ def check_moe_gmm(torch, ref, kmoe, gen):
              ("deepseek_decode", 256, 8, 7168, 2048, "bfloat16", True),
              ("deepseek_prefill", 256, math.ceil(128 * 8 * 1.5 / 256), 7168, 2048,
               "bfloat16", True),
+             # one rank of the sharded olmoe-1b-7b (2x2 mesh): its 32 of 64
+             # experts after the dispatch, T = ep * C: decode 2 x 1, prefill
+             # 2 x ceil(4 * 32 * 8 * 1.5 / 64)
+             ("sharded_decode", 32, 2, 2048, 1024, "bfloat16", True),
+             ("sharded_prefill", 32, 2 * math.ceil(4 * 32 * 8 * 1.5 / 64), 2048, 1024,
+              "bfloat16", True),
              ("jamba_decode", 16, 8, 4096, 14336, "bfloat16", True),
              ("jamba_prefill", 16, math.ceil(128 * 2 * 1.5 / 16), 4096, 14336,
               "bfloat16", True)]
@@ -438,6 +454,102 @@ def check_flash_decode(torch, F, ref, kfd, gen):
                 2 * (2 * B * H * hd + 2 * n * KH * hd) + 4 * B, 4 * n * H * hd, dt)
         results[name] = row
         log("kernel.flash_decode", case=name, **row)
+    return results
+
+
+def lse_library(torch, q, k, v, lengths, to, tm, tl):
+    """The library call that computes the (o, m, l) form's function: the
+    memory-efficient attention with its log-sum-exp, under an additive
+    mask of each row's length. It returns (o / l, log l + m), which merges
+    across shards as (o, m, l) does with m = lse and l = 1. Checked once
+    against the f32 truth (to, tm, tl); returns the call to time."""
+    B, H, _ = q.shape
+    S = k.shape[2]
+    keep = torch.arange(S, device=q.device)[None, :] < lengths[:, None]
+    bias = torch.zeros((B, S), dtype=q.dtype, device=q.device).masked_fill(
+        ~keep, -torch.inf)[:, None, None, :].expand(B, H, 1, S).contiguous()
+
+    def call():
+        out, lse = torch.ops.aten._scaled_dot_product_efficient_attention(
+            q[:, :, None], k, v, bias, True)[:2]
+        return out[:, :, 0], lse[:, :, 0]
+    o_lib, lse_lib = call()
+    err_o = max_err(o_lib, to / tl[..., None])
+    err_lse = max_err(lse_lib, tm + torch.log(tl))
+    if err_o > 2e-2 or err_lse > 1e-2:
+        raise AssertionError(f"library yardstick disagrees: o {err_o}, lse {err_lse}")
+    return call
+
+
+def check_flash_decode_lse(torch, ref, kfd, gen):
+    """The (o, m, l) form against ``ref.flash_decode_lse_ref`` (the port's
+    ``attn_chunk_lse``) at the sharded decode's shape: one rank's batch
+    (B_loc 4) and KV shard (S_loc 256 of 512) of olmoe-1b-7b (H = KH = 16,
+    hd 128). Model rank 0's shard holds every position the decode reaches
+    (lengths 65-95); model rank 1's holds none (lengths 0: o = 0, l = 0,
+    m = -1e30, the reference's values). Also the split edges at B 8, and
+    f32. f32: o, m, l within 1e-4; bf16: the normalised output against the
+    f32 truth, 1.5x the plain version's error + 1e-3, and m within 1e-4."""
+    results = {}
+    # (name, B, lengths, dtype, timed)
+    cases = [("sharded_decode", 4, [65, 72, 88, 95], "bfloat16", True),
+             ("sharded_empty", 4, [0, 0, 0, 0], "bfloat16", True),
+             ("sharded_decode_f32", 4, [65, 72, 88, 95], "float32", False),
+             ("edges", 8, [0, 1, 63, 64, 65, 128, 255, 256], "bfloat16", False),
+             ("edges_f32", 8, [0, 1, 63, 64, 65, 128, 255, 256], "float32", False)]
+    H, KH, hd, S = 16, 16, 128, 256
+    for name, B, lens, dt, timed in cases:
+        tdt = getattr(torch, dt)
+        q = torch.randn((B, H, hd), generator=gen, device="cuda").to(tdt)
+        k = torch.randn((B, KH, S, hd), generator=gen, device="cuda").to(tdt)
+        v = torch.randn((B, KH, S, hd), generator=gen, device="cuda").to(tdt)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        live = lengths > 0
+        n0 = kfd.lse_launches
+        o, m, l = kfd.flash_decode_lse_cuda(q, k, v, lengths)
+        torch.cuda.synchronize()
+        if kfd.lse_launches != n0 + 1:
+            raise AssertionError(f"flash_decode_lse {name}: launch not counted")
+        po, pm, pl = ref.flash_decode_lse_ref(q, k, v, lengths)
+        to, tm, tl = ref.flash_decode_lse_ref(q.float(), k.float(), v.float(), lengths)
+        empty_ok = bool((o[~live] == 0).all() and (l[~live] == 0).all()
+                        and (m[~live] == -1e30).all())
+        err = max(max_err(o, po), max_err(m, pm), max_err(l, pl))
+        m_ok = torch.allclose(m, pm, atol=1e-4, rtol=1e-4)
+        if dt == "float32":
+            ok = m_ok and all(torch.allclose(a, b, atol=1e-4, rtol=1e-4)
+                              for a, b in ((o, po), (l, pl)))
+            rule = "f32 o, m, l atol=rtol=1e-4"
+        elif live.any():
+            def norm(o_, l_):
+                return o_[live] / l_[live][..., None]
+            truth = norm(to, tl)
+            err_plain = max_err(norm(po, pl), truth)
+            ok = m_ok and max_err(norm(o, l), truth) <= 1.5 * err_plain + 1e-3
+            rule = (f"bf16 o/l vs f32 truth <= 1.5 x plain's ({err_plain:.3g}) + 1e-3, "
+                    "m atol=rtol=1e-4")
+        else:
+            ok, rule = m_ok, "empty shard: o = 0, l = 0, m = -1e30"
+        if not (ok and empty_ok) or not all(torch.isfinite(t).all() for t in (o, m, l)):
+            raise AssertionError(f"flash_decode_lse {name}: err {err} fails {rule} "
+                                 f"(empty rows exact: {empty_ok})")
+        row = {"B": B, "H": H, "KH": KH, "S": S, "hd": hd, "lengths": lens, "dtype": dt,
+               "max_abs_err": err, "rule": rule}
+        if timed:
+            row["ms"] = time_ms(torch, lambda: kfd.flash_decode_lse_cuda(q, k, v, lengths))
+            row["plain_ms"] = time_ms(torch, lambda: ref.flash_decode_lse_ref(q, k, v, lengths))
+            if live.all():
+                row["library_ms"] = time_ms(torch, lse_library(torch, q, k, v, lengths, to,
+                                                               tm, tl))
+            else:
+                # the library call gives NaN for a row with nothing to attend to
+                row["library_ms"] = None
+            n = sum(lens)
+            row["bound_ms"], row["bound_by"] = bound(
+                2 * (B * H * hd + 2 * n * KH * hd) + 4 * B + 4 * (B * H * hd + 2 * B * H),
+                4 * n * H * hd, dt)
+        results[name] = row
+        log("kernel.flash_decode_lse", case=name, **row)
     return results
 
 
@@ -983,18 +1095,354 @@ def mla_share(torch, eng, prof, kmoe, kfd):
 # gradients, the Trainer at published widths, exact resume and recovery
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# sharded serving: olmoe-1b-7b on a 2x2 mesh through launch/serve
+# ---------------------------------------------------------------------------
+
+SHARDED_MESH = (2, 2)
+A2A_KINDS = {(0, 1): "dispatch", (1, 0): "combine"}
+
+
+class CountingDist:
+    """A rank's Dist with a count of the bytes each collective sends from
+    this rank, by kind: dispatch and combine (the MoE all-to-alls: split
+    the expert dim and concatenate capacity, and back), all_gather,
+    reduce_scatter, all_reduce (psum and pmax) and p2p (the expert move). Bytes sent, per call, for a group of n ranks: an
+    all-to-all keeps 1/n of its input, an all-gather sends its input to
+    n - 1 ranks, a reduce-scatter (n - 1)/n of its input, and an
+    all-reduce twice that (reduce-scatter, then all-gather), as a ring
+    moves them. Everything else goes to the wrapped Dist."""
+
+    def __init__(self, dist):
+        self._dist = dist
+        self.reset()
+
+    def __getattr__(self, name):
+        return getattr(self._dist, name)
+
+    def reset(self):
+        self.counts = {}
+
+    def snapshot(self):
+        return {k: {"calls": c, "bytes": b} for k, (c, b) in self.counts.items()}
+
+    def _add(self, kind, x, factor):
+        c = self.counts.setdefault(kind, [0, 0])
+        c[0] += 1
+        c[1] += int(x.numel() * x.element_size() * factor)
+
+    def _group(self, kind, x, axis, factor):
+        """Count one collective of `kind` over `axis`; factor(n) is the
+        share of x's bytes sent for a group of n."""
+        n = self._dist.size(axis)
+        if n > 1:
+            self._add(kind, x, factor(n))
+
+    def psum(self, x, axis):
+        self._group("all_reduce", x, axis, lambda n: 2 * (n - 1) / n)
+        return self._dist.psum(x, axis)
+
+    def pmax(self, x, axis):
+        self._group("all_reduce", x, axis, lambda n: 2 * (n - 1) / n)
+        return self._dist.pmax(x, axis)
+
+    def all_gather(self, x, axis, dim=0):
+        self._group("all_gather", x, axis, lambda n: n - 1)
+        return self._dist.all_gather(x, axis, dim)
+
+    def reduce_scatter(self, x, axis, dim=0):
+        self._group("reduce_scatter", x, axis, lambda n: (n - 1) / n)
+        return self._dist.reduce_scatter(x, axis, dim)
+
+    def all_to_all(self, x, axis, split_dim, concat_dim):
+        self._group(A2A_KINDS.get((split_dim, concat_dim), "all_to_all"), x, axis,
+                    lambda n: (n - 1) / n)
+        return self._dist.all_to_all(x, axis, split_dim, concat_dim)
+
+    def exchange(self, sends, recvs):
+        for t, _ in sends:
+            self._add("p2p", t, 1)
+        return self._dist.exchange(sends, recvs)
+
+
+def count_collectives(dist):
+    """``serve``'s `wrap_dist`: runs in every rank process."""
+    return CountingDist(dist)
+
+
+def near_tie_flips(torch, ref_logits, tokens, vocab, margin=0.05):
+    """[(step, row, margin)] where `tokens` differ from the argmax of
+    `ref_logits` [T, B, V] and the reference's top-2 margin is not under
+    `margin`: the flips the near-tie rule does not allow. Padded vocab ids
+    are dropped."""
+    lg = ref_logits[..., :vocab].float()
+    top2 = lg.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    bad = (lg.argmax(-1) != tokens) & (gap >= margin)
+    return [(int(t), int(b), float(gap[t, b])) for t, b in bad.nonzero().tolist()]
+
+
+def logit_gate(torch, truth, sharded, single, vocab):
+    """Position by position against the f32 truth (the same weights in
+    f32): e = max_v |sharded - truth| and the single device's own e1 =
+    max_v |single - truth| at each (step, row). Sorted from the largest,
+    e_(i) <= 1.5 e1_(i) + 1e-3 at every rank i: the rule that holds a bf16
+    kernel against the f32 truth (1.5x the plain version's error + 1e-3),
+    over the whole distribution of positions. Returns (ranks that fail as
+    [(i, e, bound)], readings, e1 [T, B])."""
+    tr = truth[..., :vocab].float()
+    e = (sharded[..., :vocab].float() - tr).abs().amax(-1)
+    e1 = (single[..., :vocab].float() - tr).abs().amax(-1)
+    es = e.flatten().sort(descending=True).values
+    e1s = e1.flatten().sort(descending=True).values
+    allowed = 1.5 * e1s + 1e-3
+    q = torch.tensor([0.5, 0.9, 0.99], device=e.device)
+    fail = (es > allowed).nonzero()[:, 0].tolist()
+    read = {"max": float(es[0]), "q50_q90_q99": torch.quantile(e.flatten(), q).tolist(),
+            "single_max": float(e1s[0]),
+            "single_q50_q90_q99": torch.quantile(e1.flatten(), q).tolist(),
+            "largest_ratio_by_rank": float((es / e1s.clamp(min=1e-30)).max()),
+            "ranks_over": len(fail)}
+    return [(i, float(es[i]), float(allowed[i])) for i in fail[:8]], read, e1
+
+
+def flip_gate(torch, truth, tokens, vocab, e1, near=0.05):
+    """The sharded run's greedy tokens [T, B] against the f32 truth's
+    argmax a, position by position: a token t != a at (step, row) is
+    allowed where the truth's top-2 margin there is under `near` (the JAX
+    test's rule), or where the gap truth[a] - truth[t] is under 2 x 1.5 x
+    e1 (the single device's largest logit error at that position, e1
+    from ``logit_gate``: both logits of the pair can move by it). Returns
+    (flips not allowed as [(step, row, gap)], readings)."""
+    tr = truth[..., :vocab].float()
+    a = tr.argmax(-1)
+    top2 = tr.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    gap = (tr.gather(-1, a[..., None]) - tr.gather(-1, tokens[..., None].long()))[..., 0]
+    flip = tokens != a
+    allowed = (margin < near) | (gap < 3 * e1)
+    bad = flip & ~allowed
+    read = {"flips": int(flip.sum()), "flips_near_tie": int((flip & (margin < near)).sum()),
+            "positions_refusing_a_top2_flip": int(((margin >= near)
+                                                   & (margin >= 3 * e1)).sum()),
+            "positions": int(flip.numel())}
+    return [(int(t), int(b), float(gap[t, b])) for t, b in bad.nonzero().tolist()], read
+
+
+def sharded_reference(torch, M, kvcache, cfg, job, tokens, groups, device="cuda",
+                      fp8=False, truth=False):
+    """The single-device port on the same weights (the global draw from
+    SEED), fed the sharded run's tokens (teacher forcing), with the MoE
+    capacity groups of the sharded run: (batch shards, sequence shards) in
+    prefill, the batch shards in decode, as each rank routes its own
+    tokens. With `fp8`, each expert input row goes through the e4m3 round
+    trip of the fp8 dispatch (a scale per row, as each slot travels), so
+    that the reference computes what the sharded run with ``a2a_fp8``
+    computes. With `truth`, the same weights (drawn in the job's dtype)
+    run in f32: the arithmetic without rounding to the job's dtype.
+    Returns the f32 logits [new_tokens, B, V_pad]: the prefill's last
+    position, then each decode step's."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers.common import fp8_dequantize, fp8_quantize
+    gmm = ops.moe_gmm
+    params = M.init_model(cfg, None, seed=job["seed"], device=device)
+    if truth:
+        from repro_torch.convert import tree_map
+        params = tree_map(lambda t: t.float() if t.is_floating_point() else t, params)
+        cfg = cfg.replace(dtype="float32")
+    P, S = job["prompt_len"], job["max_seq"]
+    prompts = torch.as_tensor(tokens["prompts"], device=device)
+    out = torch.as_tensor(tokens["tokens"], device=device)
+    try:
+        if fp8:
+            ops.moe_gmm = lambda x, *w: gmm(fp8_dequantize(*fp8_quantize(x), x.dtype), *w)
+        with torch.no_grad():
+            lg, caches = M.prefill_logits(params, {"tokens": prompts}, cfg,
+                                          capacity_groups=groups)
+            caches = kvcache.pad_to_capacity(cfg, caches, P, S)
+            logits = [lg[:, 0]]
+            for i in range(job["new_tokens"] - 1):
+                lg, caches = M.decode_logits(params, caches, out[:, i:i + 1], P + i,
+                                             cfg, capacity_groups=groups[0])
+                logits.append(lg[:, 0])
+    finally:
+        ops.moe_gmm = gmm
+    del params, caches
+    return torch.stack(logits)
+
+
+def sharded_phase(torch, M, kvcache, smi, device="cuda", **cut):
+    """olmoe-1b-7b at published widths (16 layers, random weights from SEED
+    drawn in the global layout, each rank keeping its shards) through
+    ``launch.serve`` on a 2x2 (data x model) mesh: 8 prompts of 64 tokens,
+    max_seq 512, 32 new tokens, in bf16 with the bf16 and with the fp8
+    dispatch, and in f32 (TF32 off; 8 layers, 16 new tokens). nccl with a card per rank, else four
+    ranks on card 0 over gloo (NCCL refuses two ranks on one card).
+
+    Each run is held against the single-device port on the same weights,
+    fed the run's own tokens, with the sharded run's MoE capacity groups
+    (the fp8 run: with the e4m3 round trip of its dispatch). Every greedy
+    token must be the argmax of the run's own gathered logits. f32: the
+    logits within 1e-3 of the single device, flips only where its top-2
+    margin is under 0.05. bf16 and fp8: held, with the single device, to
+    the f32 truth (the same weights in f32), position by position
+    (``logit_gate``, ``flip_gate``): the bf16 single device alone is up to
+    ~0.4 from the truth at full width and flips greedy tokens at margins
+    well past 0.05, as an expert choice or a capacity drop turns on one
+    rounding. The fp8 run's distance from the bf16 reference is printed.
+    Every rank must launch ``moe_gmm`` and the (o, m, l) ``flash_decode``
+    on every layer of every decode step. `device` and `cut` (job keys) are
+    for a rehearsal of this phase on the CPU at a reduced size."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.serve import job_config
+    n_cards = torch.cuda.device_count()
+    n_ranks = math.prod(SHARDED_MESH)
+    transport = "nccl" if device == "cuda" and n_cards >= n_ranks else "gloo"
+    log("sharded.transport", transport=transport, cards=n_cards, ranks=n_ranks,
+        why=("one rank per card" if transport == "nccl" else
+             "four ranks share card 0: NCCL refuses two ranks on one card, so "
+             "collectives go through host memory over gloo; their times say "
+             "nothing about NVLink"), nvidia_smi=smi)
+    if device == "cuda":
+        log("sharded.card_memory", parent_allocated_gib=torch.cuda.memory_allocated() / 2 ** 30,
+            parent_reserved_gib=torch.cuda.memory_reserved() / 2 ** 30,
+            used_mib=subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                                     "--format=csv,noheader,nounits"], capture_output=True,
+                                    text=True).stdout.strip())
+    base = dict(arch="olmoe-1b-7b", batch=8, prompt_len=64, max_seq=512,
+                new_tokens=32, seed=SEED, logits=True, **cut)
+    # f32 at 8 of 16 layers and 16 new tokens: 6.8 GiB of weights a rank;
+    # all 16 would double that on each of four ranks sharing one card
+    f32 = dict(base, new_tokens=16, layers=8,
+               config=dict(base.get("config", {}), dtype="float32"))
+    if "layers" in cut:
+        f32["layers"] = cut["layers"]
+    jobs = {"bf16": base, "fp8": dict(base, a2a_fp8=True), "f32": f32}
+    t0 = time.perf_counter()
+    ranks = serve.serve(list(jobs.values()), mesh_shape=SHARDED_MESH,
+                        transport=transport, device=device,
+                        wrap_dist=count_collectives, timeout=900)
+    out = {"transport": transport, "nvidia_smi": smi,
+           "serve_wall_s": time.perf_counter() - t0, "jobs": {}}
+    failures = []
+    for j, (name, job) in enumerate(jobs.items()):
+        cfg = job_config(job)
+        layers, steps_n = cfg.num_layers, job["new_tokens"] - 1
+        per_rank = []
+        for r in range(n_ranks):
+            res = ranks[r][j]
+            dec, pre = res["launches"]["decode"], res["launches"]["prefill"]
+            want = {"moe_gmm": layers * steps_n, "flash_decode_lse": layers * steps_n,
+                    "flash_decode": 0}
+            if device == "cuda" and (dec != want or pre["moe_gmm"] != layers
+                                     or pre["flash_decode_lse"]):
+                failures.append(f"{name} rank {r}: launches {dec} in decode, {pre} "
+                                f"in prefill; want {want} and {layers} moe_gmm in prefill")
+            snap = res["snapshots"]["decode"] or {}
+            row = {"rank": r, "coords": res["coords"], "transport": transport,
+                   "prefill_ms": 1e3 * res["prefill_s"],
+                   "decode_ms_per_step_median": 1e3 * _median(res["decode_step_s"]),
+                   "decode_ms_per_step": [1e3 * t for t in res["decode_step_s"]],
+                   "relayout_ms": 1e3 * res["relayout_s"],
+                   "reshard_s": res["reshard_s"], "init_s": res["init_s"],
+                   "peak_gib": res.get("peak_bytes", 0) / 2 ** 30,
+                   "param_gib": res["param_bytes"] / 2 ** 30,
+                   "cache_mib": res["cache_bytes"] / 2 ** 20,
+                   "launches": res["launches"],
+                   "collective_bytes_per_step": {k: v["bytes"] / steps_n
+                                                 for k, v in snap.items()},
+                   "collective_calls_per_step": {k: v["calls"] / steps_n
+                                                 for k, v in snap.items()},
+                   "reshard_bytes": (res["snapshots"]["reshard"] or {}).get(
+                       "p2p", {}).get("bytes", 0),
+                   "relayout_bytes": sum(v["bytes"] for v in
+                                         (res["snapshots"]["relayout"] or {}).values())}
+            per_rank.append(row)
+            log(f"sharded.{name}.rank", **{k: v for k, v in row.items()
+                                           if k != "decode_ms_per_step"}, nvidia_smi=smi)
+        r0 = ranks[0][j]
+        v = cfg.vocab_size
+        fp8 = bool(job.get("a2a_fp8"))
+        ref_logits = sharded_reference(torch, M, kvcache, cfg, job, r0, (2, 2), device,
+                                       fp8=fp8)
+        sharded = torch.as_tensor(r0["logits"], device=device)
+        tokens = torch.as_tensor(r0["tokens"], device=device).T        # [T, B]
+        diff = (sharded[..., :v] - ref_logits[..., :v]).abs().max().item()
+        res = {"ranks": per_rank, "layers": layers, "dtype": cfg.dtype,
+               "max_abs_logit_diff_vs_single_device": diff,
+               "flips_vs_single_device": int((ref_logits[..., :v].argmax(-1)
+                                              != tokens).sum()),
+               "tokens_row0": r0["tokens"][0].tolist()}
+        # every token is the argmax of the run's own gathered logits (the
+        # vocab-sharded greedy sampling, lowest index on a tie)
+        if not bool((sharded[..., :v].argmax(-1) == tokens).all()):
+            failures.append(f"{name}: a greedy token is not the argmax of the run's "
+                            "own logits")
+        if name == "f32":
+            res["rule"] = "logits within 1e-3; flips only where the top-2 margin < 0.05"
+            res["flips_not_allowed"] = near_tie_flips(torch, ref_logits, tokens, v)
+            if not diff <= 1e-3:
+                failures.append(f"f32 logits differ from the single device by {diff} > 1e-3")
+        else:
+            truth = sharded_reference(torch, M, kvcache, cfg, job, r0, (2, 2), device,
+                                      fp8=fp8, truth=True)
+            over, res["logits_vs_truth"], e1 = logit_gate(torch, truth, sharded,
+                                                          ref_logits, v)
+            res["flips_not_allowed"], res["tokens_vs_truth"] = flip_gate(
+                torch, truth, tokens, v, e1)
+            res["reference"] = ("single device; truth: the same weights in f32"
+                                + (", both with the e4m3 round trip of each expert "
+                                   "input row" if fp8 else ""))
+            res["rule"] = ("per-position max |logit - truth|, sorted, <= 1.5 x the single "
+                           "device's + 1e-3 at every rank; a token off the truth's argmax "
+                           "only at a top-2 margin < 0.05 or a gap < 3 x the single "
+                           "device's error at that position")
+            if over:
+                failures.append(f"{name}: per-position logit errors over the bound "
+                                f"(rank, error, bound): {over}")
+            del truth, e1
+        if fp8:
+            res["max_abs_logit_diff_vs_bf16_reference"] = (
+                sharded[..., :v] - sharded_reference(torch, M, kvcache, cfg, job, r0, (2, 2),
+                                                     device)[..., :v]).abs().max().item()
+        if res["flips_not_allowed"]:
+            failures.append(f"{name}: tokens flip where no rule allows it "
+                            f"(step, row, gap): {res['flips_not_allowed']}")
+        out["jobs"][name] = res
+        log(f"sharded.{name}", **{k: v for k, v in res.items() if k != "ranks"},
+            transport=transport, nvidia_smi=smi)
+        del ref_logits, sharded
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    # the predicted MoE bytes per decode step, to hold the counts against:
+    # E * C * D * (bytes per element) * (ep - 1) / ep per MoE layer, C the
+    # capacity of one rank's 4 tokens; fp8 sends 1-byte values and a f32
+    # scale per slot
+    cfg = job_config(base)
+    n_moe = sum(s.ffn == "moe" for s in cfg.layer_specs)
+    e, d = cfg.moe.num_experts, cfg.d_model
+    c = math.ceil(8 // 2 * cfg.moe.experts_per_token * cfg.moe.capacity_factor / e)
+    out["predicted_bytes_per_step"] = {
+        "dispatch_bf16": n_moe * e * c * d * 2 / 2, "combine": n_moe * e * c * d * 2 / 2,
+        "dispatch_fp8": n_moe * (e * c * d + 4 * e * c) / 2}
+    log("sharded.predicted", **out["predicted_bytes_per_step"])
+    if failures:
+        raise AssertionError("sharded.olmoe-1b-7b: " + "; ".join(failures))
+    return out
+
+
 def check_moe_gmm_grad(torch, ref, kmoe, gen):
     """Forward and backward through ``MoeGmm`` (``ops.moe_gmm`` on card
     tensors that want gradients) against autograd of ``moe_gmm_ref``: out,
     dx, dWg, dWu and dWd. olmoe's training shape (E=64, T=768: one capacity
     group of 8 x 512 tokens, ceil(4096 * 8 * 1.5 / 64)) in bf16, gated
     against the f32 truth as the forward kernel is; an odd T in f32 (the
-    CUDA-core variant), within 1e-4. At the training shape, the forward
-    kernel, the plain forward and the plain backward are timed."""
+    CUDA-core variant), within 1e-4. In both, the forward kernel, the
+    plain forward and the plain backward are timed."""
     from repro_torch.kernels import ops
     results = {}
     cases = [("train", 64, math.ceil(8 * 512 * 8 * 1.5 / 64), 2048, 1024, "bfloat16", True),
-             ("odd_t_f32", 4, 37, 2048, 1024, "float32", False)]
+             ("odd_t_f32", 4, 37, 2048, 1024, "float32", True)]
     for name, e, t, d, f, dt, timed in cases:
         tdt = getattr(torch, dt)
         args = [torch.randn(s, generator=gen, device="cuda", dtype=tdt).mul_(c)
@@ -1034,9 +1482,10 @@ def check_moe_gmm_grad(torch, ref, kmoe, gen):
                                    "max_abs": float(tr.abs().max()), "rule": rule}
         row["max_abs_err"] = max(o["max_abs_err"] for o in row["outputs"].values())
         if timed:
-            el = 2
+            el = 2 if dt == "bfloat16" else 4
             flops = 6 * e * t * d * f
-            row["tile_plan"] = dict(zip(("nf", "mt", "n_tiles"), kmoe.tile_plan(t)))
+            if which == "tensor_core":
+                row["tile_plan"] = dict(zip(("nf", "mt", "n_tiles"), kmoe.tile_plan(t)))
             row["ms"] = time_ms(torch, lambda: kmoe.moe_gmm_cuda(*args))
             row["plain_ms"] = time_ms(torch, lambda: ref.moe_gmm_ref(*args))
             row["bound_ms"], row["bound_by"] = bound(
@@ -1367,10 +1816,24 @@ def main() -> int:
     for n, kernels in attrs.items():
         log("build.registers", library=n, kernels=kernels)
 
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    if sys.argv[1:] == ["--sharded-only"]:
+        # the sharded phase and its kernel alone: with four or more cards
+        # its ranks take nccl, one rank a card
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        phase("kernel.flash_decode_lse", check_flash_decode_lse, torch, ref, kfd, gen)
+        sharded = phase("sharded.olmoe-1b-7b", sharded_phase, torch, M, kvcache, smi)
+        print(json.dumps({"sharded": {j: {k: v for k, v in r.items() if k != "ranks"}
+                                      for j, r in sharded["jobs"].items()}}))
+        print(json.dumps({"ok": True, "device": device}))
+        return 0
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     moe = phase("kernel.moe_gmm", check_moe_gmm, torch, ref, kmoe, gen)
     fd = phase("kernel.flash_decode", check_flash_decode, torch, F, ref, kfd, gen)
+    fd_lse = phase("kernel.flash_decode_lse", check_flash_decode_lse, torch, ref, kfd, gen)
     grad = phase("kernel.moe_gmm.grad", check_moe_gmm_grad, torch, ref, kmoe, gen)
     parity = {"olmoe-1b-7b": phase("parity_f32", parity_f32, torch, get_arch, M,
                                    kvcache, convert)}
@@ -1394,6 +1857,10 @@ def main() -> int:
                                kvcache, convert, specdec, kmoe, kfd, cfg, params,
                                batch=4, prompt_len=32, seq=96)}
     del params
+    free()
+
+    # sharded serving: full olmoe-1b-7b on a 2x2 mesh through launch/serve
+    sharded = phase("sharded.olmoe-1b-7b", sharded_phase, torch, M, kvcache, smi)
     free()
 
     # the other configurations through the engine, each with its own profile
@@ -1553,6 +2020,9 @@ def main() -> int:
                         f"dbo.{ds} (first step)": dbo_ds["launches_first_step"],
                         f"prefill_patches.{vl} (decode)": patches["launches"],
                         "train.olmoe-1b-7b": train["launches"],
+                        **{f"sharded.olmoe-1b-7b.{j} (rank {r['rank']} decode)":
+                           r["launches"]["decode"]
+                           for j, job in sharded["jobs"].items() for r in job["ranks"]},
                         **{f"specdec.{a}.{d}": r[d]["launches"]
                            for a, r in sd.items() for d in ("heads", "oracle")}}
     log("launches_by_path", **launches_by_path)
@@ -1584,6 +2054,21 @@ def main() -> int:
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                         "other_timed_shapes": cases})
+    lse = fd_lse["sharded_decode"]
+    kernels.append({"name": "flash_decode_lse", "route": "cuda",
+                    "source": "src/repro_torch/csrc/flash_decode.cu",
+                    "replaces": "src/repro/kernels/flash_decode.py:61",
+                    "variant": "split_s, (o, m, l) combine",
+                    "launches": sharded["jobs"]["bf16"]["ranks"][0]["launches"]["decode"][
+                        "flash_decode_lse"],
+                    "launches_by_path": {p: n.get("flash_decode_lse", 0)
+                                         for p, n in launches_by_path.items()},
+                    "max_abs_err": lse["max_abs_err"], "ms": lse["ms"],
+                    "plain_ms": lse["plain_ms"], "bound_ms": lse["bound_ms"],
+                    "bound_by": lse["bound_by"], "library_ms": lse["library_ms"],
+                    "other_timed_shapes": {c: {k: r[k] for k in (
+                        "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}
+                        for c, r in fd_lse.items() if "ms" in r and c != "sharded_decode"}})
     kernels[0]["training"] = {k: grad["train"][k] for k in (
         "shape", "ms", "plain_ms", "bound_ms", "bound_by", "bwd_plain_ms",
         "bwd_bound_ms", "max_abs_err")}
@@ -1591,6 +2076,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "kernel_attributes": attrs, "moe_gmm": moe, "flash_decode": fd,
+         "flash_decode_lse": fd_lse, "sharded": sharded,
          "parity_f32_max_abs_logit_err": parity, "main_path": main_res,
          "main_paths": others, "dbo": dbo_res, f"dbo.{ds}": dbo_ds, "specdec": sd,
          "mla_share": mla, f"prefill_patches.{vl}": patches,
@@ -1601,9 +2087,7 @@ def main() -> int:
          "profile": profiles, "kernels": kernels}, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    print(json.dumps({"ok": True, "device": device}))
     return 0
 
 

@@ -8,7 +8,9 @@ position's leaves stacked over periods (``{"periods": (...), "rem": (...)}``)
 for ``lax.scan``; the port keeps one entry per layer, in layer order. A
 sliding-window layer's ring-buffer cache crosses as it is.
 Like every entry point of the port, the converters put the tensors on the
-card unless the caller passes ``device="cpu"``.
+card unless the caller passes ``device="cpu"``. ``shard_tree`` cuts a
+global tree into one rank's shards by a spec tree of ``sharding.specs``,
+and ``gather_tree`` puts every rank's shards back together.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.sharding.specs import P, shard_bounds
 
 
 def tree_map(fn: Callable, tree: Any) -> Any:
@@ -97,3 +100,56 @@ def draft_heads_from_jax(heads, device="cuda") -> List[torch.Tensor]:
     arrays) -> the port's draft heads, so both sides draft the same
     tokens."""
     return [to_torch(h, device) for h in heads]
+
+
+def _zip_specs(fn: Callable, tree: Any, specs: Any) -> Any:
+    """fn(leaf, spec) over a tree and its spec tree (``P`` leaves)."""
+    if isinstance(specs, P):
+        return fn(tree, specs)
+    if isinstance(tree, dict):
+        return {k: _zip_specs(fn, v, specs[k]) for k, v in tree.items()}
+    return type(tree)(_zip_specs(fn, a, s) for a, s in zip(tree, specs))
+
+
+def shard_leaf(x, spec, mesh, rank: Optional[int] = None):
+    """`rank`'s block (default: the mesh's own rank) of a global leaf
+    (a tensor or a numpy array), copied so that the global can be freed."""
+    bounds = shard_bounds(x.shape, spec, mesh, rank)
+    if all(lo == 0 and hi == n for (lo, hi), n in zip(bounds, x.shape)):
+        return x
+    block = x[tuple(slice(lo, hi) for lo, hi in bounds)]
+    return block.clone() if isinstance(block, torch.Tensor) else np.array(block)
+
+
+def shard_tree(global_tree: Any, specs: Any, mesh, rank: Optional[int] = None) -> Any:
+    """One rank's shards of a tree of global leaves (numpy from JAX, or the
+    port's own global init), by the spec tree of ``sharding.specs``."""
+    return _zip_specs(lambda x, s: shard_leaf(x, s, mesh, rank), global_tree, specs)
+
+
+def gather_tree(rank_trees: List[Any], specs: Any, mesh) -> Any:
+    """The inverse of ``shard_tree``: the global tree from every rank's
+    shards (``rank_trees[r]`` is rank r's), each block written at its
+    place; a replicated dim takes the copy of the lowest rank holding it."""
+
+    def gather(spec, *shards):
+        first = shards[0]
+        shape = [n * (mesh.size(e) if e is not None else 1)
+                 for n, e in zip(first.shape, tuple(spec) + (None,) * first.ndim)]
+        if isinstance(first, torch.Tensor):
+            out = torch.empty(shape, dtype=first.dtype, device=first.device)
+        else:
+            out = np.empty(shape, dtype=first.dtype)
+        for r in reversed(range(len(shards))):
+            bounds = shard_bounds(shape, spec, mesh, r)
+            out[tuple(slice(lo, hi) for lo, hi in bounds)] = shards[r]
+        return out
+
+    def walk(specs, trees):
+        if isinstance(specs, P):
+            return gather(specs, *trees)
+        if isinstance(specs, dict):
+            return {k: walk(v, [t[k] for t in trees]) for k, v in specs.items()}
+        return type(specs)(walk(s, [t[i] for t in trees]) for i, s in enumerate(specs))
+
+    return walk(specs, rank_trees)

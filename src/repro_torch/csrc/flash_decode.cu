@@ -37,6 +37,17 @@
 //      paying a second launch latency after it.
 // Any g, hd <= 256, any S; rows whose bytes are not a multiple of 16 are
 // copied element by element instead.
+//
+// The (o, m, l) form (flash_decode_lse_launch) serves a decode whose KV
+// cache is sequence-sharded over ranks, where JAX calls the plain
+// attn_chunk_lse (src/repro/models/layers/attention.py:114) and merges the
+// ranks' partials with lse_combine. Pass 1 is the same; pass 2 keeps the
+// shard's unnormalised o = sum_c e^(m_c - M) o_c (f32 [B, H, hd]), its max
+// M and its sum L = sum_c e^(m_c - M) l_c (f32 [B, H]). A shard with
+// nothing to attend to (length 0) writes o = 0, l = 0 and m = -1e30, the
+// reference's NEG_INF and not -inf, so that the cross-rank combine never
+// takes -inf - (-inf). It adds 8 bytes of m and l per (slot, head) to the
+// normalised form's traffic, and writes o in f32.
 #include <math.h>
 
 #include <cuda_runtime.h>
@@ -48,6 +59,7 @@ constexpr int NT = 128;         // threads per block
 constexpr int NW = NT / 32;     // warps per block
 constexpr int MAX_HD = 256;     // head dim limit
 constexpr int CHUNK = 64;       // cache positions per split
+constexpr float NEG_INF = -1e30f;   // the plain version's mask value
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -233,6 +245,40 @@ flash_decode_combine_kernel(const float* __restrict__ o_part,
   }
 }
 
+// The (o, m, l) combine: a block per (slot, query head), as above, but the
+// output stays unnormalised and f32, with its max and sum beside it.
+__global__ void __launch_bounds__(NT)
+flash_decode_combine_lse_kernel(const float* __restrict__ o_part,
+                                const float* __restrict__ m_part,
+                                const float* __restrict__ l_part,
+                                const int* __restrict__ lengths,
+                                float* __restrict__ o_out, float* __restrict__ m_out,
+                                float* __restrict__ l_out, int kh, int g, int s,
+                                int hd, int n_split) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int bhg = blockIdx.x;                      // (b * kh + kv head) * g + gi
+  const int bh = bhg / g, gi = bhg % g;
+  const int len = min(max(lengths[bh / kh], 0), s);
+  const int n_valid = (len + CHUNK - 1) / CHUNK;
+  const size_t base = (size_t)bh * n_split;
+  float mx = -INFINITY;
+  for (int c = 0; c < n_valid; ++c) mx = fmaxf(mx, m_part[(base + c) * g + gi]);
+  float den = 0.f;
+  for (int c = 0; c < n_valid; ++c)
+    den += expf(m_part[(base + c) * g + gi] - mx) * l_part[(base + c) * g + gi];
+  if (threadIdx.x == 0) {
+    m_out[bhg] = n_valid ? mx : NEG_INF;
+    l_out[bhg] = den;
+  }
+  for (int d = threadIdx.x; d < hd; d += NT) {
+    float acc = 0.f;
+    for (int c = 0; c < n_valid; ++c)
+      acc += expf(m_part[(base + c) * g + gi] - mx) *
+             o_part[((base + c) * g + gi) * hd + d];
+    o_out[(size_t)bhg * hd + d] = acc;
+  }
+}
+
 template <typename T>
 size_t partial_smem(int g, int hd) {
   return sizeof(T) * 2 * (size_t)CHUNK * row_pitch(hd, sizeof(T))
@@ -240,9 +286,9 @@ size_t partial_smem(int g, int hd) {
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const int* lengths,
-           void* out, float* o_part, float* m_part, float* l_part, int b,
-           int kh, int g, int s, int hd, cudaStream_t st) {
+int launch_partials(const void* q, const void* k, const void* v, const int* lengths,
+                    float* o_part, float* m_part, float* l_part, int b, int kh,
+                    int g, int s, int hd, cudaStream_t st) {
   const size_t smem = partial_smem<T>(g, hd);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -255,26 +301,55 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
   flash_decode_partial_kernel<T><<<dim3(b * kh, n_split), NT, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       lengths, o_part, m_part, l_part, kh, g, s, hd, n_split, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  // the combine may launch while the partials run (it waits for them), so
-  // its launch latency hides behind their tail
+  return cudaGetLastError();
+}
+
+// A combine of b * kh * g blocks, launched as a programmatic dependent of
+// the partials: it may launch while they run (it waits for them), so its
+// launch latency hides behind their tail.
+template <typename... Params, typename... Args>
+int launch_combine(void (*kernel)(Params...), int blocks, cudaStream_t st,
+                   Args... args) {
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(b * kh * g);
+  cfg.gridDim = dim3(blocks);
   cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = st;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, flash_decode_combine_kernel<T>,
-                           (const float*)o_part, (const float*)m_part,
-                           (const float*)l_part, lengths, static_cast<T*>(out),
-                           kh, g, s, hd, n_split);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const int* lengths,
+           void* out, float* o_part, float* m_part, float* l_part, int b,
+           int kh, int g, int s, int hd, cudaStream_t st) {
+  const int err = launch_partials<T>(q, k, v, lengths, o_part, m_part, l_part,
+                                     b, kh, g, s, hd, st);
+  if (err != cudaSuccess) return err;
+  return launch_combine(flash_decode_combine_kernel<T>, b * kh * g, st,
+                        (const float*)o_part, (const float*)m_part,
+                        (const float*)l_part, lengths, static_cast<T*>(out),
+                        kh, g, s, hd, (s + CHUNK - 1) / CHUNK);
+}
+
+template <typename T>
+int launch_lse(const void* q, const void* k, const void* v, const int* lengths,
+               float* o_out, float* m_out, float* l_out, float* o_part,
+               float* m_part, float* l_part, int b, int kh, int g, int s, int hd,
+               cudaStream_t st) {
+  const int err = launch_partials<T>(q, k, v, lengths, o_part, m_part, l_part,
+                                     b, kh, g, s, hd, st);
+  if (err != cudaSuccess) return err;
+  return launch_combine(flash_decode_combine_lse_kernel, b * kh * g, st,
+                        (const float*)o_part, (const float*)m_part,
+                        (const float*)l_part, lengths, o_out, m_out, l_out,
+                        kh, g, s, hd, (s + CHUNK - 1) / CHUNK);
 }
 
 struct KernelEntry {
@@ -287,6 +362,7 @@ const KernelEntry kKernels[] = {
     {"flash_decode_partial<bf16>", (const void*)flash_decode_partial_kernel<__nv_bfloat16>},
     {"flash_decode_combine<f32>", (const void*)flash_decode_combine_kernel<float>},
     {"flash_decode_combine<bf16>", (const void*)flash_decode_combine_kernel<__nv_bfloat16>},
+    {"flash_decode_combine_lse", (const void*)flash_decode_combine_lse_kernel},
 };
 
 }  // namespace
@@ -311,6 +387,30 @@ int flash_decode_launch(const void* q, const void* k, const void* v,
     return launch<float>(q, k, v, len, out, op, mp, lp, b, kh, g, s, hd, st);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, len, out, op, mp, lp, b, kh, g, s, hd, st);
+  return cudaErrorInvalidValue;
+}
+
+// The (o, m, l) form: the same arguments, and o_out f32 [B, H, hd], m_out
+// and l_out f32 [B, H] in place of out.
+int flash_decode_lse_launch(const void* q, const void* k, const void* v,
+                            const void* lengths, void* o_out, void* m_out,
+                            void* l_out, void* o_part, void* m_part, void* l_part,
+                            int b, int kh, int g, int s, int hd, int dtype,
+                            void* stream) {
+  if (hd > MAX_HD || hd <= 0 || s <= 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* len = static_cast<const int*>(lengths);
+  float* oo = static_cast<float*>(o_out);
+  float* mo = static_cast<float*>(m_out);
+  float* lo = static_cast<float*>(l_out);
+  float* op = static_cast<float*>(o_part);
+  float* mp = static_cast<float*>(m_part);
+  float* lp = static_cast<float*>(l_part);
+  if (dtype == 0)
+    return launch_lse<float>(q, k, v, len, oo, mo, lo, op, mp, lp, b, kh, g, s, hd, st);
+  if (dtype == 1)
+    return launch_lse<__nv_bfloat16>(q, k, v, len, oo, mo, lo, op, mp, lp, b, kh, g,
+                                     s, hd, st);
   return cudaErrorInvalidValue;
 }
 

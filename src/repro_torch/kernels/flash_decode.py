@@ -10,6 +10,14 @@ cache capacity, so nothing reads the lengths on the host. Its plain version
 is ``ref.flash_decode_ref``; ``ops.flash_decode`` picks between them by
 device. ``launches`` counts the wrapper's calls that launched (each call is
 two kernel launches).
+
+``flash_decode_lse_cuda`` is the (o, m, l) form for a sequence-sharded
+cache: the same partials, then a combine that returns the shard's
+unnormalised f32 output with its max and sum (m = -1e30, l = 0, o = 0 for
+a shard with nothing to attend to), for ``attention.lse_combine`` across
+ranks. Its plain version is ``ref.flash_decode_lse_ref``, the port's
+``attn_chunk_lse``; ``ops.flash_decode_lse`` picks between them.
+``lse_launches`` counts its calls.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HD = 256
 CHUNK = 64          # cache positions per split, as in the CUDA source
 launches = 0
+lse_launches = 0
 
 
 def _lib():
@@ -33,6 +42,9 @@ def _lib():
         lib.flash_decode_launch.argtypes = [ctypes.c_void_p] * 8 \
             + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.flash_decode_launch.restype = ctypes.c_int
+        lib.flash_decode_lse_launch.argtypes = [ctypes.c_void_p] * 10 \
+            + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.flash_decode_lse_launch.restype = ctypes.c_int
     return lib
 
 
@@ -83,6 +95,16 @@ def _check(q, k, v):
     return b, h, kh, s, hd
 
 
+def _scratch(b, kh, g, s, hd, device):
+    """One f32 buffer for the partials; the pointers of o, m and l in it."""
+    shapes = scratch_shapes(b, kh, g, s, hd)
+    sizes = [math.prod(shapes[n]) for n in ("o", "m", "l")]
+    part = torch.empty(sum(sizes), dtype=torch.float32, device=device)
+    o_ptr = part.data_ptr()
+    m_ptr = o_ptr + 4 * sizes[0]
+    return part, (o_ptr, m_ptr, m_ptr + 4 * sizes[1])
+
+
 def flash_decode_cuda(q, k, v, length):
     """q: [B, H, hd]; k/v: [B, KH, S, hd], contiguous, k and v starting on
     a 16-byte boundary; length: int, 0-d or [B] int tensor of valid
@@ -91,19 +113,36 @@ def flash_decode_cuda(q, k, v, length):
     b, h, kh, s, hd = _check(q, k, v)
     lengths = lengths_tensor(length, b, q.device)
     lib = _lib()
-    shapes = scratch_shapes(b, kh, h // kh, s, hd)
-    sizes = [math.prod(shapes[n]) for n in ("o", "m", "l")]
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)
-        part = torch.empty(sum(sizes), dtype=torch.float32, device=q.device)
-        o_ptr = part.data_ptr()
-        m_ptr = o_ptr + 4 * sizes[0]
-        l_ptr = m_ptr + 4 * sizes[1]
+        part, ptrs = _scratch(b, kh, h // kh, s, hd, q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = lib.flash_decode_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), o_ptr, m_ptr, l_ptr, b, kh, h // kh, s, hd,
-            DTYPES[q.dtype], stream)
+            out.data_ptr(), *ptrs, b, kh, h // kh, s, hd, DTYPES[q.dtype], stream)
     build.check(status, NAME)
     launches += 1
     return out
+
+
+def flash_decode_lse_cuda(q, k, v, length):
+    """The (o, m, l) form, on the arguments of ``flash_decode_cuda``.
+    Returns o f32 [B, H, hd] (sum over the valid positions of e^(s - m) v),
+    m and l f32 [B, H] (the max score, -1e30 where no position is valid,
+    and the sum of e^(s - m))."""
+    global lse_launches
+    b, h, kh, s, hd = _check(q, k, v)
+    lengths = lengths_tensor(length, b, q.device)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        o = torch.empty((b, h, hd), dtype=torch.float32, device=q.device)
+        ml = torch.empty((2, b, h), dtype=torch.float32, device=q.device)
+        part, ptrs = _scratch(b, kh, h // kh, s, hd, q.device)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        status = lib.flash_decode_lse_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+            o.data_ptr(), ml[0].data_ptr(), ml[1].data_ptr(), *ptrs,
+            b, kh, h // kh, s, hd, DTYPES[q.dtype], stream)
+    build.check(status, NAME)
+    lse_launches += 1
+    return o, ml[0], ml[1]

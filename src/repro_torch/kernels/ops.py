@@ -4,7 +4,7 @@ else selects the path: no override and no fallback on CUDA."""
 from __future__ import annotations
 
 from repro_torch.kernels import ref as kref
-from repro_torch.kernels.flash_decode import flash_decode_cuda
+from repro_torch.kernels.flash_decode import flash_decode_cuda, flash_decode_lse_cuda
 from repro_torch.kernels.moe_gmm import MoeGmm
 
 
@@ -31,3 +31,12 @@ def flash_decode(q, k, v, length):
     if _on_cpu(q):
         return kref.flash_decode_ref(q, k, v, length)
     return flash_decode_cuda(q, k, v, length)
+
+
+def flash_decode_lse(q, k, v, length):
+    """The (o, m, l) form for a sequence-sharded cache: q [B, H, hd];
+    k/v [B, KH, S, hd]; length: valid positions per slot -> o f32
+    [B, H, hd], m, l f32 [B, H]."""
+    if _on_cpu(q):
+        return kref.flash_decode_lse_ref(q, k, v, length)
+    return flash_decode_lse_cuda(q, k, v, length)

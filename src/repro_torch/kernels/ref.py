@@ -40,6 +40,37 @@ def flash_decode_ref(q, k, v, length):
     return o.reshape(B, H, hd).to(q.dtype)
 
 
+def attn_chunk_lse(q, k, v, *, pos_k, max_pos):
+    """Decode attention over one KV chunk, unnormalised, for a log-sum-exp
+    combine (the JAX decode core, ``attention.attn_chunk_lse``).
+    q: [B, H, hd]; k, v: [B, KH, S, hd]; pos_k: [S] absolute positions;
+    max_pos: highest attendable position, an int or a [B] tensor (one per
+    slot). Returns o [B, H, hd] f32, m [B, H] (NEG_INF where nothing is
+    attendable), lsum [B, H]. q and p are rounded to the cache's dtype."""
+    B, H, hd = q.shape
+    KH = k.shape[1]
+    g = H // KH
+    scale = 1.0 / math.sqrt(hd)
+    qr = q.reshape(B, KH, g, hd).to(k.dtype).float()
+    s = torch.einsum("bhgd,bhsd->bhgs", qr, k.float()) * scale
+    max_pos = torch.as_tensor(max_pos, device=q.device).reshape(-1, 1, 1, 1)
+    mask = pos_k[None, None, None, :] <= max_pos
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(-1)
+    p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    o = torch.einsum("bhgs,bhsd->bhgd", p.to(v.dtype).float(), v.float())
+    return o.reshape(B, H, hd), m.reshape(B, H), p.sum(-1).reshape(B, H)
+
+
+def flash_decode_lse_ref(q, k, v, length):
+    """The (o, m, l) form of ``flash_decode_ref``: ``attn_chunk_lse`` over
+    the first `length` positions of each slot (an int, 0-d or [B] tensor).
+    Returns o f32 [B, H, hd], m and l f32 [B, H]."""
+    pos_k = torch.arange(k.shape[2], device=q.device)
+    length = torch.as_tensor(length, device=q.device)
+    return attn_chunk_lse(q, k, v, pos_k=pos_k, max_pos=length - 1)
+
+
 def moe_gmm_bwd_ref(x, w_gate, w_up, w_down, dy):
     """The gradient of ``moe_gmm_ref`` as written: dy [E, T, D] ->
     (dx, dw_gate, dw_up, dw_down), each in its input's shape and dtype.

@@ -1,0 +1,206 @@
+"""Step builders: the model's prefill and decode bound to one rank.
+
+Port of ``repro.launch.steps``. JAX wraps the manual-SPMD model functions
+in ``shard_map`` and ``jit`` over global shapes and PartitionSpec trees;
+here each rank is a process, so a step is the same model function called
+on the rank's shards with the rank's ``Dist``, and a builder returns it
+with the specs and the local shapes it expects. There is no jit and no AOT
+lowering: PyTorch runs eagerly.
+
+``init_params`` draws the global weights leaf by leaf from one seed and
+keeps this rank's shards, so every rank (and a single device given the
+same seed) holds the same model and no rank ever holds all of it.
+``reshard`` moves a rank's shards from one spec tree to another (the
+prefill plan puts the experts on ``model``, the decode plan on ``data``)
+with point-to-point copies between the ranks that hold and need each
+block.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeCell
+from repro_torch.convert import shard_tree
+from repro_torch.models import model as M
+from repro_torch.models.layers import common
+from repro_torch.sharding.dist import Dist, NullDist
+from repro_torch.sharding.plans import ShardingPlan, make_plan
+from repro_torch.sharding.specs import (P, batch_specs, cache_specs, local_shape,
+                                        param_specs, shard_bounds, shard_count)
+
+
+def dist_for(mesh, transport: Optional[str]) -> Dist:
+    """This rank's Dist on `mesh` (NullDist without one). The transport
+    ("nccl" or "gloo") is the caller's choice: None raises on a mesh
+    (``serve.default_transport`` is the launcher's rule)."""
+    if mesh is None:
+        return NullDist()
+    return Dist.for_mesh(mesh, transport)
+
+
+@dataclass
+class Step:
+    """A step bound to one rank: call it like the function it wraps."""
+    fn: Callable
+    dist: Dist
+    plan: ShardingPlan
+    param_specs: Any
+    in_specs: Dict[str, P]
+    cache_specs: Any = None
+    local_shapes: Dict[str, tuple] = field(default_factory=dict)
+
+    def __call__(self, *args, **kw):
+        return self.fn(*args, **kw)
+
+
+def batch_struct(cfg: ModelConfig, shape: ShapeCell, plan: ShardingPlan):
+    """(global shapes, specs) of one step's inputs."""
+    B, S = shape.global_batch, shape.seq_len
+    shapes = {"tokens": (B, S) if shape.kind in ("train", "prefill") else (B, 1)}
+    if cfg.frontend == "vit_patches" and shape.kind != "decode":
+        shapes["patches"] = (B, cfg.n_frontend_tokens, cfg.d_model)
+    return shapes, batch_specs(cfg, shape.kind, plan)
+
+
+def _local(shapes, specs, mesh):
+    if mesh is None:
+        return dict(shapes)
+    return {k: local_shape(v, specs[k], mesh) for k, v in shapes.items()}
+
+
+def build_prefill(cfg: ModelConfig, shape: ShapeCell, plan: ShardingPlan,
+                  mesh=None, *, dist: Optional[Dist] = None,
+                  transport: Optional[str] = None, logits: bool = False) -> Step:
+    """step(params, batch) -> (next_token [B_loc, 1], caches), on this
+    rank's batch shard (tokens [B_loc, S_loc]), with the vocab-sharded f32
+    logits of the last position third when `logits`."""
+    dist = dist or dist_for(mesh, transport)
+    shapes, specs = batch_struct(cfg, shape, plan)
+
+    def step(params, batch):
+        lg, caches = M.prefill_logits(params, batch, cfg, plan, dist)
+        tok = common.greedy_sample(lg, cfg, plan, dist)
+        return (tok, caches, lg) if logits else (tok, caches)
+
+    return Step(step, dist, plan, param_specs(cfg, plan), specs,
+                cache_specs(cfg, plan), _local(shapes, specs, mesh))
+
+
+def build_decode_step(cfg: ModelConfig, shape: ShapeCell, plan: ShardingPlan,
+                      mesh=None, *, dist: Optional[Dist] = None,
+                      transport: Optional[str] = None, logits: bool = False) -> Step:
+    """step(params, caches, tokens, pos) -> (next_token, caches), with the
+    vocab-sharded f32 logits [B_loc, 1, V_loc] third when `logits`. Cache
+    capacity = shape.seq_len, each rank holding its S / kv positions; the
+    new token lands at the scalar `pos`."""
+    dist = dist or dist_for(mesh, transport)
+    shapes, specs = batch_struct(cfg, shape, plan)
+    cspecs = cache_specs(cfg, plan)
+    # a full-attention layer's k or v
+    shapes["cache"] = (shape.global_batch, cfg.num_kv_heads, shape.seq_len, cfg.head_dim)
+    specs = dict(specs, cache=P(plan.batch_axes, None, plan.kv_axis, None))
+    loc = _local(shapes, specs, mesh)
+
+    def step(params, caches, tokens, pos):
+        lg, caches = M.decode_logits(params, caches, tokens, pos, cfg, plan, dist)
+        tok = common.greedy_sample(lg, cfg, plan, dist)
+        return (tok, caches, lg) if logits else (tok, caches)
+
+    del specs["cache"]
+    return Step(step, dist, plan, param_specs(cfg, plan), specs, cspecs, loc)
+
+
+def build_train_step(*a, **kw):
+    raise NotImplementedError("the sharded train step comes with training "
+                              "across ranks (ROADMAP queue 1, item 5b)")
+
+
+def build_cell(cfg: ModelConfig, shape: ShapeCell, mesh, *, fsdp: bool = True,
+               plan_kw=None, transport: str):
+    """One cell on this rank: (step, plan), its collectives over
+    `transport` ("nccl" or "gloo")."""
+    plan = make_plan(cfg, shape, mesh.axes, mesh.shape, fsdp=fsdp,
+                     **(plan_kw or {}))
+    if shape.kind == "train":
+        return build_train_step(cfg, shape, plan, mesh), plan
+    build = build_prefill if shape.kind == "prefill" else build_decode_step
+    return build(cfg, shape, plan, mesh, transport=transport), plan
+
+
+# ---------------------------------------------------------------------------
+# weights on ranks
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, plan: ShardingPlan, mesh, *, seed: int = 0,
+                device="cuda"):
+    """This rank's shards of ``M.init_model(cfg, plan, seed=seed)``: each
+    piece is drawn at its global shape and cut at once."""
+    specs = param_specs(cfg, plan)
+
+    def shard(path, tree):
+        sub = specs
+        for k in path:
+            sub = sub[k]
+        return shard_tree(tree, sub, mesh)
+
+    return M.init_model(cfg, plan, seed=seed, device=device, shard=shard)
+
+
+def _contains(outer, inner) -> bool:
+    return all(o0 <= i0 and i1 <= o1 for (o0, o1), (i0, i1) in zip(outer, inner))
+
+
+def _move(x, old: P, new: P, dist: Dist):
+    """One leaf from spec `old` to spec `new`. Every rank computes the same
+    plan: each rank's new block comes from itself when it holds it, else
+    from the holder with the fewest sends so far."""
+    if tuple(old) == tuple(new):
+        return x
+    mesh = dist.mesh
+    pad = (None,) * x.dim()
+    gshape = [n * shard_count(e, mesh) for n, e in zip(x.shape, tuple(old) + pad)]
+    old_b = [shard_bounds(gshape, old, mesh, r) for r in range(mesh.n_ranks)]
+    load = [0] * mesh.n_ranks
+    src = []
+    for r in range(mesh.n_ranks):
+        need = shard_bounds(gshape, new, mesh, r)
+        holders = [s for s in range(mesh.n_ranks) if _contains(old_b[s], need)]
+        if not holders:
+            raise NotImplementedError(f"reshard {old} -> {new}: no rank holds a "
+                                      "whole new block")
+        s = r if r in holders else min(holders, key=lambda h: (load[h], h))
+        load[s] += s != r
+        src.append((s, need))
+    me = mesh.rank
+
+    def mine(need):
+        return x[tuple(slice(lo - o0, hi - o0)
+                       for (lo, hi), (o0, _) in zip(need, old_b[me]))]
+
+    sends = [(mine(need), r) for r, (s, need) in enumerate(src) if s == me and r != me]
+    s, need = src[me]
+    if s == me:
+        out, recvs = mine(need).clone(), []
+    else:
+        out = torch.empty([hi - lo for lo, hi in need], dtype=x.dtype, device=x.device)
+        recvs = [(out, s)]
+    dist.exchange(sends, recvs)
+    return out
+
+
+def reshard(params, from_specs, to_specs, dist: Dist):
+    """Move this rank's shards from `from_specs` to `to_specs`, leaf by
+    leaf and in place (each old leaf is dropped as its new one arrives, so
+    a rank holds one layout plus one leaf). Every rank must call it."""
+    if isinstance(params, dict):
+        for k in params:
+            params[k] = reshard(params[k], from_specs[k], to_specs[k], dist)
+        return params
+    if isinstance(params, list):
+        for i in range(len(params)):
+            params[i] = reshard(params[i], from_specs[i], to_specs[i], dist)
+        return params
+    return _move(params, from_specs, to_specs, dist)

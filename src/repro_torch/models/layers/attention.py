@@ -21,10 +21,28 @@ Port of the single-device paths of ``repro.models.layers.attention``:
            is ``ops.flash_decode`` with length ``enc_len`` for every row,
            the mask of the JAX decode's ``attn_chunk_lse`` at
            ``max_pos = enc_len - 1``.
-``attn_chunk_lse`` and ``lse_combine`` are the JAX decode core in plain
-torch; the port's decode path does not call them, the tests hold
-``ops.flash_decode`` against them. Ring attention and the head-TP and
-sequence-sharded branches are not ported yet.
+Sharded (one rank's shards, as inside JAX's ``shard_map``):
+  prefill  tokens sequence-sharded over ``plan.seq_axis``. ``head_tp``:
+           all-gather x over the sequence, q on this rank's heads, k/v on
+           the KV heads they map to (``_local_kv_slice``), attention over
+           the whole sequence, the row-sharded W_o, then a reduce-scatter
+           that sums the head partials and scatters the sequence
+           (Megatron-SP). ``replicated``: q stays local, k/v are
+           all-gathered. The cache holds every KV head for the local
+           positions; a window layer's ring is assembled across ranks
+           (``_window_cache_from_prefill``).
+  decode   the token replicated over tp; q gathered to every head under
+           ``head_tp``. A full-attention cache is sequence-sharded over
+           ``plan.kv_axis``: only the rank owning ``pos`` writes the new
+           row (the others write their old row back), each rank attends
+           over its shard through ``ops.flash_decode_lse`` (the (o, m, l)
+           kernel on the card), and ``lse_combine`` merges the ranks. W_o
+           is row-sharded under ``head_tp``: each rank projects its heads
+           and a psum adds them (``_decode_out_proj``).
+``attn_chunk_lse`` (``kernels.ref``) is the JAX decode core, and the plain
+version of ``ops.flash_decode_lse``. Ring attention comes with training
+across ranks (ROADMAP queue 1, item 5b); cross-attention under head-TP
+and over a sharded encoder cache with the sharded mixers (item 5c).
 """
 from __future__ import annotations
 
@@ -33,6 +51,7 @@ import math
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import attn_chunk_lse  # noqa: F401  (the JAX decode core)
 from repro_torch.models.layers.common import apply_rope, dtype_of, normal
 from repro_torch.sharding.dist import Dist
 from repro_torch.sharding.plans import ShardingPlan
@@ -88,25 +107,6 @@ def flash_attn(q, k, v, *, causal: bool, window: int = 0, q_offset=0,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
 
 
-def attn_chunk_lse(q, k, v, *, pos_k, max_pos):
-    """Decode attention over one KV chunk, unnormalised, for a log-sum-exp
-    combine. q: [B, H, hd]; k, v: [B, KH, S, hd]; pos_k: [S] absolute
-    positions; max_pos: highest attendable position. Returns o [B, H, hd]
-    f32, m [B, H], lsum [B, H]. q and p are rounded to the cache's dtype."""
-    B, H, hd = q.shape
-    KH = k.shape[1]
-    g = H // KH
-    scale = 1.0 / math.sqrt(hd)
-    qr = q.reshape(B, KH, g, hd).to(k.dtype).float()
-    s = torch.einsum("bhgd,bhsd->bhgs", qr, k.float()) * scale
-    mask = pos_k[None, None, None, :] <= max_pos
-    s = torch.where(mask, s, NEG_INF)
-    m = s.amax(-1)
-    p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
-    o = torch.einsum("bhgs,bhsd->bhgd", p.to(v.dtype).float(), v.float())
-    return o.reshape(B, H, hd), m.reshape(B, H), p.sum(-1).reshape(B, H)
-
-
 def lse_combine(o, m, lsum, axis, dist: Dist):
     """Merge partial attention (o, m, lsum) over a sharded KV axis."""
     if dist.size(axis) == 1:
@@ -134,9 +134,15 @@ def init_attention(cfg, plan: ShardingPlan, gen):
     }
 
 
-def _replicated_only(plan: ShardingPlan, dist: Dist):
-    if plan.attn_mode == "head_tp" and dist.size(plan.tp_axis) > 1:
-        raise NotImplementedError("head_tp attention is not ported yet")
+def _local_kv_slice(cfg, plan: ShardingPlan, dist: Dist):
+    """(first KV head, KV head count) that this rank's q heads map to under
+    head_tp."""
+    tp = dist.size(plan.tp_axis)
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    h_loc = H // tp
+    kv_loc = max(1, (KV * h_loc) // H)
+    start = (dist.index(plan.tp_axis) * h_loc * KV) // H
+    return start, kv_loc
 
 
 # ---------------------------------------------------------------------------
@@ -146,47 +152,75 @@ def _replicated_only(plan: ShardingPlan, dist: Dist):
 def attention_fwd(params, x, cfg, plan: ShardingPlan, dist: Dist, *,
                   window: int = 0, make_cache: bool = False):
     """Causal self-attention, over the last `window` positions when
-    `window` > 0. x: [B, S, D]. Returns (y [B, S, D], cache | None)."""
-    _replicated_only(plan, dist)
-    if dist.size(plan.seq_axis) > 1:
-        raise NotImplementedError("sequence-sharded attention is not "
-                                  "ported yet")
+    `window` > 0. x: [B, S_loc, D], this rank's positions (all of them on
+    one device). Returns (y [B, S_loc, D], cache | None)."""
     H, hd = cfg.num_heads, cfg.head_dim
-    B, s, _ = x.shape
-    pos = torch.arange(s, device=x.device)
+    seq_ax = plan.seq_axis
+    B, s_loc, _ = x.shape
+    q_offset = dist.index(seq_ax) * s_loc
+    pos_local = q_offset + torch.arange(s_loc, device=x.device)
 
     cache = None
     if make_cache:
+        # every KV head, this rank's positions: the decode layout
         k_c = torch.einsum("bsd,dkh->bksh", x, params["w_k"])
         v_c = torch.einsum("bsd,dkh->bksh", x, params["w_v"])
-        k_c = apply_rope(k_c.transpose(1, 2), pos, cfg.rope_theta).transpose(1, 2)
+        k_c = apply_rope(k_c.transpose(1, 2), pos_local,
+                         cfg.rope_theta).transpose(1, 2)
         if window:
-            cache = _window_cache_from_prefill(k_c, v_c, window)
+            cache = _window_cache_from_prefill(k_c, v_c, window, plan, dist)
         else:
             cache = {"k": k_c.contiguous(), "v": v_c.contiguous()}
 
-    q = (x @ params["w_q"]).reshape(B, s, H, hd)
+    if plan.attn_mode == "head_tp":
+        if plan.ring_attn and window == 0 and dist.size(seq_ax) > 1:
+            raise NotImplementedError(
+                "ring attention comes with training across ranks (ROADMAP "
+                "queue 1, item 5b)")
+        xg = dist.all_gather(x, seq_ax, dim=1)                     # [B, S, D]
+        S = xg.shape[1]
+        q = (xg @ params["w_q"]).reshape(B, S, -1, hd)             # local heads
+        start, kv_loc = _local_kv_slice(cfg, plan, dist)
+        k = torch.einsum("bsd,dkh->bskh", xg, params["w_k"][:, start:start + kv_loc])
+        v = torch.einsum("bsd,dkh->bskh", xg, params["w_v"][:, start:start + kv_loc])
+        pos = torch.arange(S, device=x.device)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+        o = flash_attn(q, k, v, causal=True, window=window)
+        # W_o is row-sharded over heads: the reduce-scatter sums the head
+        # partials and scatters the sequence in one collective
+        y = o.reshape(B, S, -1) @ params["w_o"]
+        return dist.reduce_scatter(y, seq_ax, dim=1), cache
+
+    q = (x @ params["w_q"]).reshape(B, s_loc, H, hd)
     k = torch.einsum("bsd,dkh->bskh", x, params["w_k"])
     v = torch.einsum("bsd,dkh->bskh", x, params["w_v"])
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
-    o = flash_attn(q, k, v, causal=True, window=window)
-    y = o.reshape(B, s, -1) @ params["w_o"]
+    q = apply_rope(q, pos_local, cfg.rope_theta)
+    k = apply_rope(k, pos_local, cfg.rope_theta)
+    k = dist.all_gather(k, seq_ax, dim=1)                          # [B, S, KV, hd]
+    v = dist.all_gather(v, seq_ax, dim=1)
+    o = flash_attn(q, k, v, causal=True, window=window, q_offset=q_offset)
+    y = o.reshape(B, s_loc, -1) @ params["w_o"]
     return y, cache
 
 
-def _window_cache_from_prefill(k_c, v_c, window: int):
+def _window_cache_from_prefill(k_c, v_c, window: int, plan: ShardingPlan,
+                               dist: Dist):
     """The ring-buffer cache of a sliding-window layer from the prefill's
-    k, v [B, KV, S, hd]: `window` rows, position p at row p % window, only
-    the last `window` positions kept, unwritten rows zero."""
-    B, KV, S, hd = k_c.shape
-    keep = torch.arange(max(S - window, 0), S, device=k_c.device)
-    rows = keep % window
+    k, v [B, KV, S_loc, hd] of this rank's positions: `window` rows,
+    position p at row p % window, only the last `window` global positions
+    kept, unwritten rows zero. Each rank adds its positions' rows and a
+    psum over the sequence axis assembles the ring on every rank."""
+    B, KV, s_loc, hd = k_c.shape
+    seq_ax = plan.seq_axis
+    S = s_loc * dist.size(seq_ax)
+    pos = dist.index(seq_ax) * s_loc + torch.arange(s_loc, device=k_c.device)
+    keep = pos >= S - window
     ring = {}
     for name, c in (("k", k_c), ("v", v_c)):
         r = torch.zeros((B, KV, window, hd), dtype=c.dtype, device=c.device)
-        r[:, :, rows] = c[:, :, keep]
-        ring[name] = r
+        r[:, :, pos[keep] % window] = c[:, :, keep]
+        ring[name] = dist.psum(r, seq_ax)
     return ring
 
 
@@ -200,21 +234,25 @@ def _positions(pos, B: int, device):
     return p.expand(B) if p.dim() == 0 else p
 
 
+def _head_tp(plan: ShardingPlan, dist: Dist) -> bool:
+    return plan.attn_mode == "head_tp" and dist.size(plan.tp_axis) > 1
+
+
 def attention_decode(params, x, cache, pos, cfg, plan: ShardingPlan,
                      dist: Dist, *, window: int = 0):
-    """x: [B, 1, D]; cache k/v: [B, KV, S, hd] (a ring [B, KV, W, hd] when
+    """x: [B, 1, D] (replicated over tp); cache k/v: [B, KV, S_loc, hd]
+    (sequence-sharded over ``plan.kv_axis``; a ring [B, KV, W, hd] when
     `window` > 0); pos: scalar or [B] positions of the incoming tokens.
     Returns (y [B, 1, D], cache) with the cache written in place."""
-    _replicated_only(plan, dist)
-    if dist.size(plan.kv_axis) > 1:
-        raise NotImplementedError("sequence-sharded decode is not ported yet")
-    H, hd = cfg.num_heads, cfg.head_dim
+    hd = cfg.head_dim
     B = x.shape[0]
     xt = x[:, 0]
     p = _positions(pos, B, x.device)                               # [B]
 
-    q = (xt @ params["w_q"]).reshape(B, H, hd)
-    q = apply_rope(q[:, None], p[:, None], cfg.rope_theta)[:, 0]
+    q = (xt @ params["w_q"]).reshape(B, -1, hd)
+    if _head_tp(plan, dist):
+        q = dist.all_gather(q, plan.tp_axis, dim=1)               # [B, H, hd]
+    q = apply_rope(q[:, None], p[:, None], cfg.rope_theta)[:, 0].contiguous()
     k_new = torch.einsum("bd,dkh->bkh", xt, params["w_k"])
     v_new = torch.einsum("bd,dkh->bkh", xt, params["w_v"])
     k_new = apply_rope(k_new[:, None], p[:, None], cfg.rope_theta)[:, 0]
@@ -227,25 +265,38 @@ def attention_decode(params, x, cache, pos, cfg, plan: ShardingPlan,
         r = p % S
         k_c[rows, :, r] = k_new
         v_c[rows, :, r] = v_new
-        length = torch.clamp(p + 1, max=S)
-    else:
-        # write at pos; a position past the cache writes its old row back
-        # at the clamped slot (the JAX non-owner rule), so it changes nothing
-        lc = torch.clamp(p, max=S - 1)
-        in_range = (p < S)[:, None, None]
-        k_c[rows, :, lc] = torch.where(in_range, k_new, k_c[rows, :, lc])
-        v_c[rows, :, lc] = torch.where(in_range, v_new, v_c[rows, :, lc])
-        length = p + 1
+        o = kops.flash_decode(q, k_c, v_c, torch.clamp(p + 1, max=S).to(torch.int32))
+        return _decode_out_proj(o, params, plan, dist, B), cache
 
-    o = kops.flash_decode(q.contiguous(), k_c, v_c, length.to(torch.int32))
-    y = _decode_out_proj(o, params, plan, dist, B)
-    return y, cache
+    # write at pos on the rank whose shard holds it; every other rank (and a
+    # position past the cache) writes its old row back at the clamped slot
+    local = p - dist.index(plan.kv_axis) * S
+    lc = torch.clamp(local, 0, S - 1)
+    in_range = ((local >= 0) & (local < S))[:, None, None]
+    k_c[rows, :, lc] = torch.where(in_range, k_new, k_c[rows, :, lc])
+    v_c[rows, :, lc] = torch.where(in_range, v_new, v_c[rows, :, lc])
+    length = torch.clamp(local + 1, 0, S).to(torch.int32)
+    if dist.size(plan.kv_axis) > 1:
+        o, m, lsum = kops.flash_decode_lse(q, k_c, v_c, length)
+        o = lse_combine(o, m, lsum, plan.kv_axis, dist)
+    else:
+        o = kops.flash_decode(q, k_c, v_c, length)
+    return _decode_out_proj(o, params, plan, dist, B), cache
 
 
 def _decode_out_proj(o, params, plan: ShardingPlan, dist: Dist, B):
-    """o: [B, H, hd] full heads; replicated W_o."""
+    """o: [B, H, hd], every head on every rank; under head_tp W_o holds
+    this rank's heads' rows, so the rank projects its heads and a psum over
+    tp adds the partials."""
     w_o = params["w_o"]
-    y = o.reshape(B, -1).to(w_o.dtype) @ w_o
+    o = o.reshape(B, -1)
+    if _head_tp(plan, dist):
+        hh_loc = w_o.shape[0]
+        r = dist.index(plan.tp_axis)
+        y = dist.psum(o[:, r * hh_loc:(r + 1) * hh_loc].to(w_o.dtype) @ w_o,
+                      plan.tp_axis)
+    else:
+        y = o.to(w_o.dtype) @ w_o
     return y[:, None, :]
 
 
@@ -254,10 +305,11 @@ def _decode_out_proj(o, params, plan: ShardingPlan, dist: Dist, B):
 # ---------------------------------------------------------------------------
 
 def _single_device(plan: ShardingPlan, dist: Dist):
-    _replicated_only(plan, dist)
-    if dist.size(plan.seq_axis) > 1 or dist.size(plan.kv_axis) > 1:
-        raise NotImplementedError("sequence-sharded cross-attention is not "
-                                  "ported yet")
+    if _head_tp(plan, dist) or dist.size(plan.seq_axis) > 1 \
+            or dist.size(plan.kv_axis) > 1:
+        raise NotImplementedError(
+            "cross-attention under head-TP or over a sharded encoder cache "
+            "comes with the sharded mixers (ROADMAP queue 1, item 5c)")
 
 
 def make_enc_cache(params, enc_out, cfg, plan: ShardingPlan, dist: Dist):

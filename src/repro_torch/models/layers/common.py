@@ -2,10 +2,14 @@
 embedding, LM head and cross entropy, greedy sampling.
 
 Port of ``repro.models.layers.common``. Every function takes the pair
-(plan, dist) where the JAX one does, so a later multi-device slice can
-shard them unchanged. ``fsdp_gather`` has no counterpart yet: on one
-device it is the identity, and the sharded form waits for the multi-device
-``Dist``. Weight layout: matmul weights are stored [in, out].
+(plan, dist) where the JAX one does and runs on one rank's shards: the
+embedding table and LM head are vocab-sharded, the dense FFN's hidden dim
+is sharded over the tensor-parallel axis (or over data x model with
+``ffn_2d``), and prefill tokens are sequence-sharded (Megatron-SP:
+all-gather before, reduce-scatter after). ``fp8_all_gather`` sends e4m3
+bytes with per-row f32 scales. ``fsdp_gather`` has no counterpart yet: it
+comes with training across ranks (ROADMAP queue 1, item 5b). Weight
+layout: matmul weights are stored [in, out].
 Init functions draw from an explicit ``torch.Generator`` onto an explicit
 device.
 """
@@ -86,9 +90,52 @@ def swiglu(x, w_gate, w_up, w_out):
     return (gate * (x @ w_up)) @ w_out
 
 
+E4M3_MAX = 448.0      # largest normal of float8_e4m3fn
+
+
+def fp8_quantize(x):
+    """e4m3 bytes (uint8, the wire format) and f32 scales [..., 1] of x,
+    one scale per row of the last dim (amax / 448; 1 for an all-zero
+    row)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(amax > 0, amax / E4M3_MAX, 1.0)
+    return (xf / scale).to(torch.float8_e4m3fn).view(torch.uint8), scale
+
+
+def fp8_dequantize(qb, scale, dtype):
+    return (qb.view(torch.float8_e4m3fn).float() * scale).to(dtype)
+
+
+def fp8_all_gather(x, axis, dist: Dist, dim: int):
+    """All-gather with an fp8 (e4m3) wire format and per-row f32 scales:
+    half the bytes of bf16. The result comes back in x's dtype."""
+    qb, scale = fp8_quantize(x)
+    qg = dist.all_gather(qb, axis, dim=dim)
+    sg = dist.all_gather(scale, axis, dim=dim)
+    return fp8_dequantize(qg, sg, x.dtype)
+
+
 def dense_ffn(params, x, plan: ShardingPlan, dist: Dist):
-    """x: [B, T, D] (single device: full sequence, full d_ff)."""
+    """x: [B, S_loc, D] (sequence-sharded: all-gathered before, the partial
+    sums reduce-scattered after) or [B, T, D] (replicated over tp: the
+    partial sums psummed). Decode ``ffn_2d``: the hidden dim is sharded
+    over data x model, the batch all-gathered over data and the output
+    reduce-scattered back to it before the psum over model."""
+    seq_sharded = dist.size(plan.seq_axis) > 1
+    if seq_sharded:
+        if plan.ag_fp8:
+            x = fp8_all_gather(x, plan.seq_axis, dist, dim=1)
+        else:
+            x = dist.all_gather(x, plan.seq_axis, dim=1)
+    ffn_2d = plan.ffn_2d and dist.size("data") > 1
+    if ffn_2d:
+        x = dist.all_gather(x, "data", dim=0)
     y = swiglu(x, params["w_gate"], params["w_up"], params["w_out"])
+    if seq_sharded:
+        return dist.reduce_scatter(y, plan.seq_axis, dim=1)
+    if ffn_2d:
+        y = dist.reduce_scatter(y, "data", dim=0)
     return dist.psum(y, plan.tp_axis)
 
 
@@ -109,9 +156,20 @@ def init_embedding(cfg, plan: ShardingPlan, gen):
     return params
 
 
-def embed(params, tokens, cfg, plan: ShardingPlan, dist: Dist):
+def embed(params, tokens, cfg, plan: ShardingPlan, dist: Dist, *,
+          seq_axis=None):
     """tokens: [B, S] int -> [B, S, D]. Each vocab shard embeds the ids it
-    owns; the psum over the vocab axis assembles them."""
+    owns; the psum over the vocab axis assembles them. With `seq_axis`, the
+    tokens are this rank's positions, sequence-sharded: every rank of the
+    vocab axis must look up the same ids, so the ids are all-gathered over
+    the sequence first, and the partial embeddings are summed over the
+    vocab axis and cut back to this rank's positions (one reduce-scatter
+    when the two axes are one, as in every plan). The JAX function psums
+    the lookups of different positions there (ROADMAP queue 3)."""
+    n_seq = dist.size(seq_axis)
+    s_loc = tokens.shape[1]
+    if n_seq > 1:
+        tokens = dist.all_gather(tokens, seq_axis, dim=1)
     table = params["table"]
     v_loc = table.shape[0]
     r = dist.index(plan.vocab_axis)
@@ -119,7 +177,12 @@ def embed(params, tokens, cfg, plan: ShardingPlan, dist: Dist):
     in_range = (local >= 0) & (local < v_loc)
     out = table[local.clamp(0, v_loc - 1)]
     out = torch.where(in_range[..., None], out, torch.zeros_like(out))
-    return dist.psum(out, plan.vocab_axis)
+    if n_seq > 1 and seq_axis == plan.vocab_axis:
+        return dist.reduce_scatter(out, seq_axis, dim=1)
+    out = dist.psum(out, plan.vocab_axis)
+    if n_seq > 1:
+        out = out.narrow(1, dist.index(seq_axis) * s_loc, s_loc)
+    return out
 
 
 def lm_logits(params, x, cfg, plan: ShardingPlan, dist: Dist):

@@ -109,7 +109,8 @@ def mamba_fwd(params, x, cfg, plan: ShardingPlan, dist: Dist, *,
     tail is the last d_conv - 1 rows of the in projection before the conv,
     zero rows first when S < d_conv - 1."""
     if dist.size(plan.seq_axis) > 1 or dist.size(plan.tp_axis) > 1:
-        raise NotImplementedError("sharded Mamba is not ported yet")
+        raise NotImplementedError("sharded Mamba comes with the sharded mixers "
+                                  "(ROADMAP queue 1, item 5c)")
     di, dtr, ds, dc = _dims(cfg)
     B, S, _ = x.shape
     u = x @ params["w_x"]                                          # [B, S, di]
@@ -137,7 +138,8 @@ def mamba_decode(params, x, cache, cfg, plan: ShardingPlan, dist: Dist):
     One step of the conv and the scan. Returns (y [B, 1, D], cache) with
     the cache written in place (each leaf keeps its dtype)."""
     if dist.size(plan.tp_axis) > 1:
-        raise NotImplementedError("tensor-parallel Mamba is not ported yet")
+        raise NotImplementedError("tensor-parallel Mamba comes with the sharded "
+                                  "mixers (ROADMAP queue 1, item 5c)")
     xt = x[:, 0]
     u = xt @ params["w_x"]                                         # [B, di]
     z = xt @ params["w_z"]

@@ -82,7 +82,8 @@ def mla_fwd(params, x, cfg, plan: ShardingPlan, dist: Dist, *,
     zero-padded to the same width and the output sliced back to hd.
     Returns (y [B, S, D], {"c_kv", "k_rope"} | None)."""
     if dist.size(plan.seq_axis) > 1:
-        raise NotImplementedError("sequence-sharded MLA is not ported yet")
+        raise NotImplementedError("sequence-sharded MLA comes with the sharded "
+                                  "mixers (ROADMAP queue 1, item 5c)")
     B, s, _ = x.shape
     q_n, q_r, c_kv, k_r = _qkv(params, x, cfg, torch.arange(s, device=x.device))
     k, v = _decompress(params, c_kv, cfg)

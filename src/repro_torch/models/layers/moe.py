@@ -12,6 +12,20 @@ slot. The port's batched decode keeps that with ``capacity_groups=B``: the
 buffer is [E, G*cap, D] with group g's slots at [g*cap, (g+1)*cap), and
 one ``moe_gmm`` launch serves every group. ``capacity_groups=1`` is the
 JAX single-call semantics (one group over all B*T tokens).
+``capacity_groups=(gb, gt)`` makes a grid of groups, gb blocks of rows by
+gt blocks of positions: the groups of a mesh whose ranks each hold one
+such block, so that one device reproduces a sharded run's drops.
+
+Expert parallelism (``plan.ep_axis`` larger than 1): each rank routes its
+own tokens with the capacity of its own token count, builds the
+[E, C, D] buffer, and the dispatch all-to-all (split the expert dim,
+concatenate the capacity dim) hands every rank the rows of its E / ep
+experts from all ranks, [E_loc, ep*C, D], for ``moe_gmm``; the combine
+all-to-all (split capacity, concatenate experts) sends them back. With
+``plan.a2a_fp8`` the dispatch travels as e4m3 bytes with a scale per slot
+(``fp8_dispatch_a2a``) and the combine in the model dtype. Shared experts
+are tensor-parallel over ``plan.tp_axis``, on sequence-sharded tokens
+all-gathered before and reduce-scattered after.
 """
 from __future__ import annotations
 
@@ -19,9 +33,20 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers.common import dtype_of, normal, swiglu
+from repro_torch.models.layers.common import (dtype_of, fp8_dequantize,
+                                              fp8_quantize, normal, swiglu)
 from repro_torch.sharding.dist import Dist
 from repro_torch.sharding.plans import ShardingPlan
+
+
+def fp8_dispatch_a2a(x_e, ep_ax, dist: Dist):
+    """The dispatch all-to-all with an fp8 (e4m3) wire format: uint8 bytes
+    and a f32 scale per slot travel; the result is dequantized to x_e's
+    dtype."""
+    qb, scale = fp8_quantize(x_e)
+    qg = dist.all_to_all(qb, ep_ax, split_dim=0, concat_dim=1)
+    sg = dist.all_to_all(scale, ep_ax, split_dim=0, concat_dim=1)
+    return fp8_dequantize(qg, sg, x_e.dtype)
 
 
 def capacity(t_loc: int, topk: int, n_exp: int, cf: float) -> int:
@@ -81,19 +106,32 @@ def aux_load_balance_loss(probs, idx, n_real: int):
 
 
 def moe_ffn(params, x, cfg, plan: ShardingPlan, dist: Dist, *,
-            capacity_groups: int = 1, collect_aux: bool = False):
-    """x: [B, T, D]. Tokens split into `capacity_groups` equal groups along
-    the flattened B*T axis, each with its own capacity. Returns y [B, T, D],
-    or (y, aux) with `collect_aux`: the load-balance loss over all B*T
-    tokens, as the JAX layer returns it (training runs one group)."""
+            capacity_groups=1, collect_aux: bool = False):
+    """x: [B, T, D], this rank's tokens. Tokens split into `capacity_groups`
+    equal groups along the flattened B*T axis (or a (rows, positions) grid
+    of groups), each with its own capacity. Returns y [B, T, D], or (y, aux)
+    with `collect_aux`: the load-balance loss over all B*T tokens, as the
+    JAX layer returns it (training runs one group)."""
+    if isinstance(capacity_groups, tuple):
+        gb, gt = capacity_groups
+        B, t, d = x.shape
+        xg = x.reshape(gb, B // gb, gt, t // gt, d).transpose(1, 2)
+        out = moe_ffn(params, xg.reshape(gt * B, t // gt, d), cfg, plan, dist,
+                      capacity_groups=gb * gt, collect_aux=collect_aux)
+        y = out[0] if collect_aux else out
+        y = y.reshape(gb, gt, B // gb, t // gt, d).transpose(1, 2).reshape(B, t, d)
+        return (y, out[1]) if collect_aux else y
     m = cfg.moe
     B, t, d = x.shape
     n_tok = B * t
     G = capacity_groups
     if n_tok % G:
         raise ValueError(f"{n_tok} tokens do not split into {G} groups")
-    if dist.size(plan.ep_axis) > 1:
-        raise NotImplementedError("expert parallelism needs torch.distributed")
+    ep_ax = plan.ep_axis
+    ep = dist.size(ep_ax)
+    if ep > 1 and G != 1:
+        raise ValueError("capacity groups are a single-device rule; under "
+                         "expert parallelism each rank is one group")
     xt = x.reshape(n_tok, d)
     e_pad = params["router"].shape[-1]
     cap = capacity(n_tok // G, m.experts_per_token, e_pad, m.capacity_factor)
@@ -114,7 +152,16 @@ def moe_ffn(params, x, cfg, plan: ShardingPlan, dist: Dist, *,
     x_e.index_add_(0, flat_idx, contrib.reshape(-1, d))
     x_e = x_e.reshape(e_pad, G * cap, d)
 
-    h = kops.moe_gmm(x_e, params["w_gate"], params["w_up"], params["w_down"])
+    if ep > 1:
+        if plan.a2a_fp8:
+            x_e = fp8_dispatch_a2a(x_e, ep_ax, dist)
+        else:
+            x_e = dist.all_to_all(x_e, ep_ax, split_dim=0, concat_dim=1)
+        # -> [E_loc, ep*C, D]: the rows of this rank's experts from every rank
+    h = kops.moe_gmm(x_e.contiguous(), params["w_gate"], params["w_up"],
+                     params["w_down"])
+    if ep > 1:
+        h = dist.all_to_all(h, ep_ax, split_dim=1, concat_dim=0)    # [E, C, D]
 
     # gather back and combine with gates
     picked = h.reshape(e_pad * G * cap, d)[flat_idx].reshape(n_tok, k, d)
@@ -122,9 +169,15 @@ def moe_ffn(params, x, cfg, plan: ShardingPlan, dist: Dist, *,
     y = torch.einsum("tk,tkd->td", w, picked).reshape(B, t, d)
 
     if m.num_shared_experts:
-        sh = swiglu(x, params["w_shared_gate"], params["w_shared_up"],
+        seq_sharded = dist.size(plan.seq_axis) > 1
+        xs = dist.all_gather(x, plan.seq_axis, dim=1) if seq_sharded else x
+        sh = swiglu(xs, params["w_shared_gate"], params["w_shared_up"],
                     params["w_shared_down"])
-        y = y + dist.psum(sh, plan.tp_axis)
+        if seq_sharded:
+            sh = dist.reduce_scatter(sh, plan.seq_axis, dim=1)
+        else:
+            sh = dist.psum(sh, plan.tp_axis)
+        y = y + sh
     if collect_aux:
         return y, aux_load_balance_loss(probs, idx, m.num_experts)
     return y

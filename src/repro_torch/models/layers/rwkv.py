@@ -34,7 +34,8 @@ def _dims(cfg):
 
 def _single_device(plan: ShardingPlan, dist: Dist):
     if dist.size(plan.seq_axis) > 1 or dist.size(plan.tp_axis) > 1:
-        raise NotImplementedError("sharded RWKV is not ported yet")
+        raise NotImplementedError("sharded RWKV comes with the sharded mixers "
+                                  "(ROADMAP queue 1, item 5c)")
 
 
 def init_rwkv_tm(cfg, plan: ShardingPlan, gen):

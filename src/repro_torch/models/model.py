@@ -11,6 +11,9 @@ sliding-window layer), the latent ``c_kv``, ``k_rope`` for MLA, ``conv``,
 ``"ffn"`` group (``shift``) and a decoder layer of an encoder-decoder a
 ``"cross"`` group (the encoder's ``k``, ``v``). Entry points run on
 ``device="cuda"`` unless told otherwise, and raise when there is no card.
+Under a sharded plan every function runs on one rank's shards: tokens
+[B_loc, S_loc] in prefill, [B_loc, 1] in decode, logits vocab-sharded;
+``launch.steps`` binds them to a rank's ``Dist``.
 """
 from __future__ import annotations
 
@@ -27,19 +30,24 @@ from repro_torch.sharding.plans import ShardingPlan, null_plan
 
 
 def init_model(cfg: ModelConfig, plan: Optional[ShardingPlan] = None, *,
-               seed: int = 0, device="cuda"):
+               seed: int = 0, device="cuda", shard=None):
     """Random weights at the config's widths, drawn on `device` from a
     ``torch.Generator`` seeded with `seed`. The CPU and the card draw
-    different numbers from one seed."""
+    different numbers from one seed. Every leaf is drawn at its global
+    shape; `shard(path, tree)`, when given, maps each piece as soon as it
+    is drawn (the embedding, each layer, the norms), so that a rank keeps
+    only its shards and never holds the whole model: path is ("embed",),
+    ("stack", i) or ("final_norm",)."""
     dev = resolve_device(device)
     plan = plan or null_plan("decode")
+    shard = shard or (lambda path, tree: tree)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    params = {
-        "embed": common.init_embedding(cfg, plan, gen),
-        "stack": tf.init_stack(cfg, plan, gen, cross=cfg.is_encoder_decoder),
-        "final_norm": common.init_rms_norm(cfg.d_model, torch.float32, dev),
-    }
+    params = {"embed": shard(("embed",), common.init_embedding(cfg, plan, gen))}
+    params["stack"] = tf.init_stack(cfg, plan, gen, cross=cfg.is_encoder_decoder,
+                                    each=lambda i, p: shard(("stack", i), p))
+    params["final_norm"] = shard(("final_norm",), common.init_rms_norm(
+        cfg.d_model, torch.float32, dev))
     if cfg.is_encoder_decoder:
         params["encoder"] = tf.init_stack(cfg, plan, gen,
                                           n_layers=cfg.encoder_layers,
@@ -53,10 +61,12 @@ def _plan_dist(plan, dist, kind):
 
 
 def _embed_inputs(params, batch, cfg, plan: ShardingPlan, dist: Dist):
-    """x [B, S, D] from the tokens; with the ``vit_patches`` frontend and
-    ``batch["patches"]`` [B, Pf, D], patch p replaces position p for
-    p < min(Pf, S) (global positions, as the JAX function)."""
-    x = common.embed(params["embed"], batch["tokens"], cfg, plan, dist)
+    """x [B, S_loc, D] from this rank's tokens (all of them on one device);
+    with the ``vit_patches`` frontend and ``batch["patches"]`` [B, Pf, D],
+    patch p replaces global position p for p < min(Pf, S), on whichever
+    sequence rank holds it (as the JAX function)."""
+    x = common.embed(params["embed"], batch["tokens"], cfg, plan, dist,
+                     seq_axis=plan.seq_axis)
     if cfg.frontend == "vit_patches" and "patches" in batch:
         s_loc = x.shape[1]
         start = dist.index(plan.seq_axis) * s_loc
@@ -82,7 +92,8 @@ def train_loss(params, batch, cfg: ModelConfig, plan: Optional[ShardingPlan] = N
     load-balance loss averaged over the layers. A scalar f32 tensor."""
     plan, dist = _plan_dist(plan, dist, "train")
     if plan.fsdp_axis is not None:
-        raise NotImplementedError("FSDP needs the multi-device Dist, not ported yet")
+        raise NotImplementedError("FSDP comes with training across ranks "
+                                  "(ROADMAP queue 1, item 5b)")
     x = _embed_inputs(params, batch, cfg, plan, dist)
     enc_out = None
     if cfg.is_encoder_decoder:
@@ -121,19 +132,28 @@ def train_loss(params, batch, cfg: ModelConfig, plan: Optional[ShardingPlan] = N
 
 def prefill_logits(params, batch, cfg: ModelConfig,
                    plan: Optional[ShardingPlan] = None,
-                   dist: Optional[Dist] = None):
+                   dist: Optional[Dist] = None, *, capacity_groups=None):
     """batch: {"tokens": [B, S]}, with "patches" [B, Pf, D] (vit_patches)
     or "frames" [B, Se, D] (encoder-decoder). Returns (f32 logits of the
-    last position [B, 1, V_pad], caches)."""
+    last position [B, 1, V_pad], caches). On a sequence-sharded plan the
+    last position lives on the last sequence rank, which broadcasts its
+    final hidden state (a psum of it and zeros). `capacity_groups`: the
+    MoE capacity groups (``moe.moe_ffn``; default one)."""
     plan, dist = _plan_dist(plan, dist, "prefill")
     x = _embed_inputs(params, batch, cfg, plan, dist)
     enc_out = None
     if cfg.is_encoder_decoder:
         enc_out = _encode(params, batch["frames"], cfg, plan, dist)
     x, caches = tf.apply_stack(params["stack"], x, cfg, plan, dist,
-                               mode="prefill", enc_out=enc_out)
+                               mode="prefill", enc_out=enc_out,
+                               capacity_groups=capacity_groups)
     x = common.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    return common.lm_logits(params["embed"], x[:, -1:], cfg, plan, dist), caches
+    last = x[:, -1:]
+    n_seq = dist.size(plan.seq_axis)
+    if n_seq > 1:
+        mine = dist.index(plan.seq_axis) == n_seq - 1
+        last = dist.psum(last if mine else torch.zeros_like(last), plan.seq_axis)
+    return common.lm_logits(params["embed"], last, cfg, plan, dist), caches
 
 
 def prefill(params, batch, cfg: ModelConfig, plan: Optional[ShardingPlan] = None,
@@ -146,18 +166,19 @@ def prefill(params, batch, cfg: ModelConfig, plan: Optional[ShardingPlan] = None
 
 def decode_logits(params, caches, tokens, pos, cfg: ModelConfig,
                   plan: Optional[ShardingPlan] = None,
-                  dist: Optional[Dist] = None, *, enc_len: int = 0):
+                  dist: Optional[Dist] = None, *, enc_len: int = 0,
+                  capacity_groups=None):
     """tokens [B, 1] -> (f32 logits [B, 1, V_pad], caches). pos: a scalar
     position for the whole batch (the JAX semantics: one MoE capacity
     group over the batch) or a [B] tensor, one position per slot (each slot
-    its own capacity group, as the JAX engine's vmap). enc_len: the
-    encoder positions cross-attention reads (encoder-decoder only). Caches
-    are written in place."""
+    its own capacity group, as the JAX engine's vmap); `capacity_groups`
+    overrides that rule. enc_len: the encoder positions cross-attention
+    reads (encoder-decoder only). Caches are written in place."""
     plan, dist = _plan_dist(plan, dist, "decode")
     x = common.embed(params["embed"], tokens, cfg, plan, dist)
     x, caches = tf.apply_stack(params["stack"], x, cfg, plan, dist,
                                mode="decode", caches=caches, pos=pos,
-                               enc_len=enc_len)
+                               enc_len=enc_len, capacity_groups=capacity_groups)
     x = common.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     return common.lm_logits(params["embed"], x, cfg, plan, dist), caches
 
@@ -191,7 +212,7 @@ def init_cache(cfg: ModelConfig, plan: Optional[ShardingPlan] = None,
 
     caches = []
     for spec in cfg.layer_specs:
-        tf.check_supported(spec, cfg)
+        tf.check_supported(spec, cfg, plan)
         if spec.mixer == "mamba":
             mc = cfg.mamba
             di = mc.expand * cfg.d_model

@@ -14,6 +14,7 @@ is causal and applies RoPE, like the decoder's.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -33,7 +34,16 @@ from repro_torch.sharding.plans import ShardingPlan
 ENCODER_PERIOD = (LayerSpec(mixer="attn", ffn="dense"),)
 
 
-def check_supported(spec: LayerSpec, cfg: ModelConfig):
+def sharded(plan: Optional[ShardingPlan]) -> bool:
+    """True when `plan` splits the model over more than one rank."""
+    return plan is not None and math.prod(plan.mesh_shape) > 1
+
+
+def check_supported(spec: LayerSpec, cfg: ModelConfig,
+                    plan: Optional[ShardingPlan] = None):
+    """Refuse, by name, a layer the port does not run: on one device any
+    GQA or MLA attention, Mamba or RWKV mixer with a dense or MoE FFN;
+    under a sharded plan GQA attention only, and no encoder-decoder."""
     attn_ok = spec.mixer in ("attn", "attn_local") and cfg.attn_kind in ("gqa", "mla")
     frontend_ok = cfg.frontend in ("", "vit_patches") or (
         cfg.frontend == "audio_frames" and cfg.is_encoder_decoder)
@@ -43,6 +53,15 @@ def check_supported(spec: LayerSpec, cfg: ModelConfig):
             f"layer {spec} of {cfg.name} is not ported yet (only GQA or MLA "
             "attn, attn_local, mamba and rwkv mixers with dense or moe FFNs; "
             "the vit_patches frontend, or audio frames into an encoder)")
+    if sharded(plan):
+        gqa = spec.mixer in ("attn", "attn_local") and cfg.attn_kind == "gqa"
+        if not gqa or cfg.is_encoder_decoder:
+            what = "MLA" if _is_mla(spec, cfg) else (
+                "cross-attention" if gqa else spec.mixer)
+            raise NotImplementedError(
+                f"{what} layers of {cfg.name} under a sharded plan come with "
+                "the sharded mixers (ROADMAP queue 1, item 5c); sharded plans "
+                "run GQA attention with dense or MoE FFNs")
 
 
 def _is_mla(spec: LayerSpec, cfg: ModelConfig) -> bool:
@@ -53,7 +72,7 @@ def init_layer(spec: LayerSpec, cfg: ModelConfig, plan: ShardingPlan, gen, *,
                cross: bool = False):
     """One layer's params; with `cross`, a cross-attention sublayer
     (``norm_x``, ``cross``) between the mixer and the FFN."""
-    check_supported(spec, cfg)
+    check_supported(spec, cfg, plan)
     dev = gen.device
     params: Dict[str, Any] = {
         "norm1": common.init_rms_norm(cfg.d_model, torch.float32, dev),
@@ -89,15 +108,16 @@ def per_slot(pos) -> bool:
 
 def apply_layer(spec: LayerSpec, p, x, cfg, plan: ShardingPlan, dist: Dist, *,
                 mode: str, cache=None, pos=None, enc_len: int = 0, enc_out=None,
-                collect_aux: bool = False):
+                collect_aux: bool = False, capacity_groups=None):
     """mode: train | prefill | decode. Returns (x, new_cache | None): the
     cache groups "mixer", "ffn" (rwkv's channel mix) and "cross" (the
     encoder's k, v, made in prefill from `enc_out`, read-only in decode over
     `enc_len` positions). Decode with per-slot positions gives each batch
     row its own MoE capacity group, as the JAX engine's vmap over slots
-    does. With `collect_aux`, (x, new_cache | None, aux): a MoE layer's
-    load-balance loss, 0.0 for any other layer."""
-    check_supported(spec, cfg)
+    does; `capacity_groups` overrides that rule (``moe.moe_ffn``). With
+    `collect_aux`, (x, new_cache | None, aux): a MoE layer's load-balance
+    loss, 0.0 for any other layer."""
+    check_supported(spec, cfg, plan)
     new_cache: Dict[str, Any] = {}
     aux = 0.0
     window = cfg.sliding_window if spec.mixer == "attn_local" else 0
@@ -159,7 +179,9 @@ def apply_layer(spec: LayerSpec, p, x, cfg, plan: ShardingPlan, dist: Dist, *,
     elif spec.ffn == "dense":
         h = common.dense_ffn(p["ffn"], h, plan, dist)
     else:
-        groups = x.shape[0] if mode == "decode" and per_slot(pos) else 1
+        groups = capacity_groups
+        if groups is None:
+            groups = x.shape[0] if mode == "decode" and per_slot(pos) else 1
         h = moe_mod.moe_ffn(p["ffn"], h, cfg, plan, dist,
                             capacity_groups=groups, collect_aux=collect_aux)
         if collect_aux:
@@ -181,16 +203,21 @@ def stack_specs(cfg: ModelConfig, n_layers: Optional[int] = None,
 
 def init_stack(cfg: ModelConfig, plan: ShardingPlan, gen, *, cross: bool = False,
                n_layers: Optional[int] = None,
-               period: Optional[Tuple[LayerSpec, ...]] = None) -> List[dict]:
-    return [init_layer(spec, cfg, plan, gen, cross=cross)
-            for spec in stack_specs(cfg, n_layers, period)]
+               period: Optional[Tuple[LayerSpec, ...]] = None,
+               each=None) -> List[dict]:
+    """One params dict per layer; `each(i, layer)`, when given, maps each
+    layer as soon as it is drawn (a rank keeping only its shard)."""
+    each = each or (lambda i, layer: layer)
+    return [each(i, init_layer(spec, cfg, plan, gen, cross=cross))
+            for i, spec in enumerate(stack_specs(cfg, n_layers, period))]
 
 
 def apply_stack(params: List[dict], x, cfg: ModelConfig, plan: ShardingPlan,
                 dist: Dist, *, mode: str, caches=None, pos=None,
                 enc_len: int = 0, enc_out=None, collect_aux: bool = False,
                 remat: bool = False, n_layers: Optional[int] = None,
-                period: Optional[Tuple[LayerSpec, ...]] = None):
+                period: Optional[Tuple[LayerSpec, ...]] = None,
+                capacity_groups=None):
     """caches: per-layer list (decode) or None (train/prefill; prefill
     creates them). Returns (x, new_caches | None), or with `collect_aux`
     (x, new_caches | None, aux): the MoE layers' load-balance losses
@@ -209,7 +236,8 @@ def apply_stack(params: List[dict], x, cfg: ModelConfig, plan: ShardingPlan,
             c_in = caches[i] if caches is not None else None
             x, c, a = apply_layer(specs[i], params[i], x, cfg, plan, dist,
                                   mode=mode, cache=c_in, pos=pos, enc_len=enc_len,
-                                  enc_out=enc_out, collect_aux=True)
+                                  enc_out=enc_out, collect_aux=True,
+                                  capacity_groups=capacity_groups)
             aux = aux + a
             new.append(c)
         return x, aux, new

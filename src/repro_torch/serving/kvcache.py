@@ -57,21 +57,43 @@ def classify(cfg, caches: List[dict]) -> List[dict]:
     return _map_leaves(lambda i, g, n, _: _leaf_info(cfg, i, g, n)[0], caches)
 
 
-def pad_to_capacity(cfg, caches: List[dict], from_seq: int, to_seq: int):
+def pad_to_capacity(cfg, caches: List[dict], from_seq: int, to_seq: int,
+                    plan=None, dist=None):
     """Grow every positional leaf's sequence dim from_seq -> to_seq with
     zeros (prefill produced capacity from_seq; the engine runs at to_seq).
     Recurrent leaves (ring buffers) keep their shape whatever its size. A
     cross cache whose encoder length equals from_seq (the engine encodes
-    one frame per prompt token) is padded too, as the JAX function does."""
+    one frame per prompt token) is padded too, as the JAX function does.
+
+    Sequence-sharded over ``plan.kv_axis`` (n ranks), a rank holds
+    positions [r*from_seq/n, (r+1)*from_seq/n) after prefill and must hold
+    [r*to_seq/n, (r+1)*to_seq/n) for decode. JAX pads the global array and
+    lets the decode sharding cut it again; here that is a re-layout across
+    the ranks: an all-gather over the kv axis, the pad, and this rank's
+    slice."""
     if to_seq < from_seq:
         raise ValueError(f"capacity {to_seq} < prefill length {from_seq}")
+    n = 1 if dist is None else dist.size(plan.kv_axis)
+    if from_seq % n or to_seq % n:
+        raise ValueError(f"{from_seq} and {to_seq} positions do not split "
+                         f"over {n} ranks")
 
-    def pad(i, g, n, x):
-        cls, dim = _leaf_info(cfg, i, g, n)
-        if cls == "recurrent" or x.shape[dim] != from_seq:
+    def pad(i, g, name, x):
+        cls, dim = _leaf_info(cfg, i, g, name)
+        if cls == "recurrent" or x.shape[dim] != from_seq // n:
             return x
+        if n > 1:
+            if g == "cross":
+                raise NotImplementedError(
+                    "a sequence-sharded cross cache comes with the sharded "
+                    "mixers (ROADMAP queue 1, item 5c)")
+            x = dist.all_gather(x, plan.kv_axis, dim=dim)
         widths = [0, 0] * (x.dim() - dim - 1) + [0, to_seq - from_seq]
-        return F.pad(x, widths)
+        x = F.pad(x, widths)
+        if n > 1:
+            r, s_loc = dist.index(plan.kv_axis), to_seq // n
+            x = x.narrow(dim, r * s_loc, s_loc).contiguous()
+        return x
 
     return _map_leaves(pad, caches)
 

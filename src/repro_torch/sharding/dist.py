@@ -1,23 +1,63 @@
-"""Distribution context of the port: the ``Dist`` interface every layer takes.
+"""Distribution context of the port: the ``Dist`` every layer takes.
 
-Layers are written against a ``Dist`` so that a later multi-device slice
-can put ``torch.distributed`` collectives behind it without touching them.
-This slice ships the single-device part only: ``Dist`` answers topology
-questions from its axis sizes and is the identity on axes of size 1, and
-``NullDist`` is a ``Dist`` whose every axis has size 1.
+Port of ``repro.sharding.dist``. In JAX the whole model runs inside one
+``shard_map`` region and ``Dist`` wraps the ``lax`` collectives by mesh
+axis name. Here every rank is a process of ``torch.distributed``, and
+``Dist`` runs each collective over the process group that a
+``launch.mesh.Mesh`` built for the named axis (or tuple of axes). On an
+axis of size 1 every collective is the identity, so the same layer code
+runs on one device under ``NullDist``.
+
+The transport is chosen by the caller, never by this module:
+  "nccl"  one rank per card, the collectives on CUDA tensors;
+  "gloo"  ranks on the CPU, or several ranks sharing one card. gloo's
+          support for CUDA tensors is partial, so a CUDA tensor is copied
+          into a pinned host buffer, the collective runs on the host, and
+          the result is copied back (``_host``; the one place this happens).
+A ``Dist`` without a mesh answers topology questions from its axis sizes
+only; a collective over an axis larger than 1 then raises.
+
+Semantics are those of the tiled ``lax`` collectives: ``all_gather`` and
+``reduce_scatter`` concatenate and split along ``dim`` in axis-index
+order, ``all_to_all(split_dim, concat_dim)`` sends chunk j of
+``split_dim`` to axis index j and concatenates what it receives along
+``concat_dim``, and ``ppermute`` leaves zeros on a rank that receives
+nothing. ``index`` of a tuple of axes is row-major over the tuple.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple, Union
 
+import torch
+import torch.distributed as td
+
 AxisName = Union[str, Tuple[str, ...]]
+TRANSPORTS = ("nccl", "gloo")
+INT32_MAX = 2 ** 31 - 1
 
 
 class Dist:
     """Collective ops bound to mesh axis names."""
 
-    def __init__(self, axis_sizes: dict[str, int]):
+    def __init__(self, axis_sizes: dict[str, int], *, mesh=None,
+                 transport: Optional[str] = None):
         self._sizes = dict(axis_sizes)
+        self.mesh = mesh
+        self.transport = transport
+        if mesh is not None and transport not in TRANSPORTS:
+            raise ValueError(f"transport {transport!r}: one of {TRANSPORTS}")
+
+    @classmethod
+    def for_mesh(cls, mesh, transport: str) -> "Dist":
+        """The Dist of this process's rank on `mesh`, whose process groups
+        must exist (``launch.mesh.make_mesh`` after
+        ``init_process_group``). "nccl" needs a card per rank."""
+        if transport == "nccl" and torch.cuda.device_count() < mesh.n_ranks:
+            raise RuntimeError(
+                f"nccl needs one card per rank: {mesh.n_ranks} ranks, "
+                f"{torch.cuda.device_count()} cards visible (use gloo to "
+                "share a card)")
+        return cls(mesh.axis_sizes, mesh=mesh, transport=transport)
 
     # ------------- topology -------------
     def size(self, axis: Optional[AxisName]) -> int:
@@ -33,39 +73,154 @@ class Dist:
     def index(self, axis: Optional[AxisName]) -> int:
         if self.size(axis) == 1:
             return 0
-        raise NotImplementedError(
-            "multi-device Dist needs torch.distributed, not ported yet")
+        return self._need_mesh(axis).index(axis)
+
+    def _need_mesh(self, axis):
+        if self.mesh is None:
+            raise ValueError(
+                f"axis {axis!r} has size {self.size(axis)}: a sharded Dist "
+                "needs a Mesh with process groups (Dist.for_mesh)")
+        return self.mesh
+
+    # ------------- transport -------------
+    def _host(self, x) -> bool:
+        """True when `x` must go through host memory: gloo and a CUDA
+        tensor. nccl refuses a tensor that is not on a card."""
+        if self.transport == "gloo":
+            return x.is_cuda
+        if not x.is_cuda:
+            raise ValueError("nccl transport: tensors must be on a card")
+        return False
+
+    def _run(self, op, x, out_shape):
+        """op(inp, out) on `x` made contiguous (a pinned host copy under
+        gloo) into a fresh `out_shape` tensor; returns it on x's device."""
+        host = self._host(x)
+        if host:
+            inp = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            inp.copy_(x)
+            out = torch.empty(out_shape, dtype=x.dtype, pin_memory=True)
+        else:
+            inp = x.contiguous()
+            out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+        op(inp, out)
+        return out.to(x.device) if host else out
+
+    def exchange(self, sends: Sequence[Tuple[torch.Tensor, int]],
+                 recvs: Sequence[Tuple[torch.Tensor, int]]):
+        """Point-to-point: send each (tensor, global rank) and receive
+        into each (buffer, global rank), all at once; buffers are filled
+        in place."""
+        stage = []
+        ops = []
+        for t, peer in sends:
+            if self._host(t):
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                t = h.copy_(t)
+            ops.append(td.P2POp(td.isend, t.contiguous(), peer))
+        for buf, peer in recvs:
+            h = buf
+            if self._host(buf):
+                h = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+            elif not buf.is_contiguous():
+                raise ValueError("exchange: receive buffers must be contiguous")
+            stage.append((buf, h))
+            ops.append(td.P2POp(td.irecv, h, peer))
+        if ops:
+            for req in td.batch_isend_irecv(ops):
+                req.wait()
+        for buf, h in stage:
+            if h is not buf:
+                buf.copy_(h)
 
     # ------------- collectives -------------
-    def _local(self, x, axis):
+    def _reduce(self, x, axis, op):
         if self.size(axis) == 1:
             return x
-        raise NotImplementedError(
-            f"collective over axis {axis!r} (size {self.size(axis)}) needs "
-            "torch.distributed, not ported yet")
+        group = self._need_mesh(axis).group(axis)
+
+        def run(inp, out):
+            out.copy_(inp)
+            td.all_reduce(out, op=op, group=group)
+        return self._run(run, x, x.shape)
 
     def psum(self, x, axis: Optional[AxisName]):
-        return self._local(x, axis)
+        return self._reduce(x, axis, td.ReduceOp.SUM)
 
     def pmax(self, x, axis: Optional[AxisName]):
-        return self._local(x, axis)
+        return self._reduce(x, axis, td.ReduceOp.MAX)
 
     def all_gather(self, x, axis: Optional[AxisName], dim: int = 0):
-        return self._local(x, axis)
+        """Tiled all-gather along tensor dim `dim` over mesh axis `axis`."""
+        n = self.size(axis)
+        if n == 1:
+            return x
+        group = self._need_mesh(axis).group(axis)
+        xt = x.movedim(dim, 0)
+        out = self._run(lambda i, o: td.all_gather_into_tensor(o, i, group=group),
+                        xt, (n * xt.shape[0],) + tuple(xt.shape[1:]))
+        return out.movedim(0, dim)
 
     def reduce_scatter(self, x, axis: Optional[AxisName], dim: int = 0):
-        return self._local(x, axis)
+        """Tiled psum_scatter along tensor dim `dim` over mesh axis `axis`."""
+        n = self.size(axis)
+        if n == 1:
+            return x
+        group = self._need_mesh(axis).group(axis)
+        xt = x.movedim(dim, 0)
+        if xt.shape[0] % n:
+            raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
+                             f"does not split {n} ways")
+        out = self._run(
+            lambda i, o: td.reduce_scatter_tensor(o, i, op=td.ReduceOp.SUM,
+                                                  group=group),
+            xt, (xt.shape[0] // n,) + tuple(xt.shape[1:]))
+        return out.movedim(0, dim)
 
     def all_to_all(self, x, axis: Optional[AxisName], split_dim: int,
                    concat_dim: int):
-        return self._local(x, axis)
+        """``lax.all_to_all(..., tiled=True)``: chunk j of `split_dim` goes
+        to axis index j; the chunks received from indices 0..n-1 are
+        concatenated along `concat_dim`."""
+        n = self.size(axis)
+        if n == 1:
+            return x
+        group = self._need_mesh(axis).group(axis)
+        if x.shape[split_dim] % n:
+            raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} "
+                             f"does not split {n} ways")
+        piece = list(x.shape)
+        piece[split_dim] //= n
+        xs = x.movedim(split_dim, 0)                          # [S, rest...]
+        out = self._run(lambda i, o: td.all_to_all_single(o, i, group=group),
+                        xs, xs.shape)
+        # out[i * S/n : (i+1) * S/n] is the chunk from index i
+        y = out.reshape((n, piece[split_dim]) + tuple(xs.shape[1:]))
+        y = y.movedim(1, split_dim + 1)                       # [n, *piece]
+        y = y.movedim(0, concat_dim)                          # n before concat dim
+        shape = list(piece)
+        shape[concat_dim] *= n
+        return y.reshape(shape)
 
     def ppermute(self, x, axis: Optional[AxisName],
                  perm: Sequence[Tuple[int, int]]):
-        return self._local(x, axis)
+        """Send to axis index dst from axis index src for each (src, dst);
+        a rank that receives nothing gets zeros."""
+        if self.size(axis) == 1:
+            return x
+        mesh = self._need_mesh(axis)
+        me, ranks = mesh.index(axis), mesh.group_ranks(axis)
+        out = torch.zeros_like(x).contiguous()
+        self.exchange([(x, ranks[d]) for s, d in perm if s == me],
+                      [(out, ranks[s]) for s, d in perm if d == me])
+        return out
 
     def roll(self, x, axis: Optional[AxisName], shift: int = 1):
-        return self._local(x, axis)
+        """Ring shift: rank r -> rank (r + shift) % n."""
+        n = self.size(axis)
+        if n == 1:
+            return x
+        return self.ppermute(x, axis, [(i, (i + shift) % n) for i in range(n)])
 
 
 class NullDist(Dist):
@@ -76,3 +231,13 @@ class NullDist(Dist):
 
     def size(self, axis):
         return 1
+
+
+def argmax_across(dist: Dist, values, indices, axis: Optional[AxisName]):
+    """Global argmax over a sharded dimension: values/indices are the local
+    winners; returns the global winning index (ties -> lowest index)."""
+    if dist.size(axis) == 1:
+        return indices
+    vmax = dist.pmax(values, axis)
+    cand = torch.where(values >= vmax, indices, INT32_MAX)
+    return -dist.pmax(-cand, axis)

@@ -60,8 +60,9 @@ class Trainer:
         self.plan = plan or null_plan("train")
         self.dist = dist or NullDist()
         if any(a in ("pod", "data") for a in self.plan.mesh_axes):
-            raise NotImplementedError("gradient reduction across ranks needs the "
-                                      "multi-device Dist, not ported yet")
+            raise NotImplementedError("gradient reduction across ranks comes with "
+                                      "training across ranks (ROADMAP queue 1, "
+                                      "item 5b)")
         self.device = resolve_device(device)
         if params is None:
             params = M.init_model(cfg, self.plan, seed=tc.seed, device=self.device)

@@ -29,14 +29,17 @@ def test_no_jax_or_repro_imports(path):
 
 def test_every_port_module_is_checked():
     """The scan covers every module of the port, the RWKV layer, the
-    configs of the dense, RWKV, ViT-patch and encoder-decoder models and
-    the training loop and checkpoints among them."""
+    configs of the dense, RWKV, ViT-patch and encoder-decoder models, the
+    training loop and checkpoints, and the multi-device Dist, specs and
+    launchers among them."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in ("models/layers/rwkv.py", "models/layers/attention.py",
                 "configs/deepseek_67b.py", "configs/minitron_8b.py",
                 "configs/rwkv6_1_6b.py", "configs/internvl2_76b.py",
                 "configs/seamless_m4t_medium.py", "serving/engine.py", "convert.py",
-                "training/train_loop.py", "training/checkpoint.py"):
+                "training/train_loop.py", "training/checkpoint.py",
+                "sharding/dist.py", "sharding/specs.py", "launch/mesh.py",
+                "launch/steps.py", "launch/serve.py"):
         assert f"src/repro_torch/{mod}" in names, mod
     assert "chip_smoke.py" in names
 
@@ -58,6 +61,8 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.kernels.build\n"
             "import repro_torch.models.layers.rwkv, repro_torch.serving.specdec\n"
             "import repro_torch.training.fault_tolerance, repro_torch.training.compression\n"
+            "import repro_torch.launch.serve, repro_torch.launch.steps\n"
+            "import repro_torch.launch.mesh, repro_torch.sharding.specs\n"
             "from repro_torch.configs import ARCHS\n"
             "assert len(ARCHS) == 11\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
