@@ -2,7 +2,7 @@
 """Run the PyTorch port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --sharded-only    # phase 14's sharded serving alone
+    python3 chip_smoke.py --sharded-only    # phases 14 and 15 (across ranks) alone
 
 Phases, each printing its own lines before the last:
   1. environment: torch/CUDA versions and the card's name and power limit;
@@ -80,6 +80,14 @@ Phases, each printing its own lines before the last:
      fp8 dispatch, and f32 at 8 layers, each held against the single-device
      port fed the same tokens, with per-rank step times, peak memory,
      launches and collective bytes per step by kind (``CountingDist``).
+ 15. training across ranks (after ``sharded.olmoe-1b-7b``):
+     ``train_sharded.olmoe-1b-7b`` trains olmoe-1b-7b at published widths,
+     4 of 16 layers, through ``launch.train`` on the same 2x2 mesh (FSDP
+     over data; EP, TP and the sequence over model): 6 steps of 8 x 512
+     tokens in bf16 with the bf16 and with the fp8 dispatch, and the f32
+     gates at 2 layers (FSDP, and FSDP with ring attention) against the
+     single-device port; ``kernel.moe_gmm.grad`` times the kernel at one
+     rank's training shape (E_loc 32, T 384).
 Every path sets the launch counters to 0 just before it and reads them
 just after; ``flash_decode`` must run once per GQA layer and step (never
 on MLA, Mamba or RWKV layers), once more per decoder layer with
@@ -1107,14 +1115,20 @@ class CountingDist:
     """A rank's Dist with a count of the bytes each collective sends from
     this rank, by kind: dispatch and combine (the MoE all-to-alls: split
     the expert dim and concatenate capacity, and back), all_gather,
-    reduce_scatter, all_reduce (psum and pmax) and p2p (the expert move). Bytes sent, per call, for a group of n ranks: an
+    reduce_scatter, all_reduce (psum and pmax) and p2p (the expert move,
+    ring shifts). Bytes sent, per call, for a group of n ranks: an
     all-to-all keeps 1/n of its input, an all-gather sends its input to
     n - 1 ranks, a reduce-scatter (n - 1)/n of its input, and an
     all-reduce twice that (reduce-scatter, then all-gather), as a ring
-    moves them. Everything else goes to the wrapped Dist."""
+    moves them. The counts come from the Dist's ``observer``, so the
+    collectives that a backward runs are counted too, under
+    "<kind>.backward"; with `by_axis` each kind is keyed by its axis as
+    well ("all_gather@data"). Everything else goes to the wrapped Dist."""
 
-    def __init__(self, dist):
+    def __init__(self, dist, by_axis=False):
         self._dist = dist
+        self._by_axis = by_axis
+        dist.observer = self._observe
         self.reset()
 
     def __getattr__(self, name):
@@ -1126,48 +1140,34 @@ class CountingDist:
     def snapshot(self):
         return {k: {"calls": c, "bytes": b} for k, (c, b) in self.counts.items()}
 
-    def _add(self, kind, x, factor):
+    def _observe(self, op, x, axis, backward=False, split_dim=None, concat_dim=None):
+        n = self._dist.size(axis) if axis is not None else 2
+        if op in ("psum", "pmax"):
+            kind, share = "all_reduce", 2 * (n - 1) / n
+        elif op == "all_gather":
+            kind, share = op, n - 1
+        elif op == "reduce_scatter":
+            kind, share = op, (n - 1) / n
+        elif op == "all_to_all":
+            kind, share = A2A_KINDS.get((split_dim, concat_dim), op), (n - 1) / n
+        else:
+            kind, share = "p2p", 1
+        if self._by_axis and axis is not None:
+            kind += "@" + ("+".join(axis) if isinstance(axis, tuple) else axis)
+        if backward:
+            kind += ".backward"
         c = self.counts.setdefault(kind, [0, 0])
         c[0] += 1
-        c[1] += int(x.numel() * x.element_size() * factor)
-
-    def _group(self, kind, x, axis, factor):
-        """Count one collective of `kind` over `axis`; factor(n) is the
-        share of x's bytes sent for a group of n."""
-        n = self._dist.size(axis)
-        if n > 1:
-            self._add(kind, x, factor(n))
-
-    def psum(self, x, axis):
-        self._group("all_reduce", x, axis, lambda n: 2 * (n - 1) / n)
-        return self._dist.psum(x, axis)
-
-    def pmax(self, x, axis):
-        self._group("all_reduce", x, axis, lambda n: 2 * (n - 1) / n)
-        return self._dist.pmax(x, axis)
-
-    def all_gather(self, x, axis, dim=0):
-        self._group("all_gather", x, axis, lambda n: n - 1)
-        return self._dist.all_gather(x, axis, dim)
-
-    def reduce_scatter(self, x, axis, dim=0):
-        self._group("reduce_scatter", x, axis, lambda n: (n - 1) / n)
-        return self._dist.reduce_scatter(x, axis, dim)
-
-    def all_to_all(self, x, axis, split_dim, concat_dim):
-        self._group(A2A_KINDS.get((split_dim, concat_dim), "all_to_all"), x, axis,
-                    lambda n: (n - 1) / n)
-        return self._dist.all_to_all(x, axis, split_dim, concat_dim)
-
-    def exchange(self, sends, recvs):
-        for t, _ in sends:
-            self._add("p2p", t, 1)
-        return self._dist.exchange(sends, recvs)
+        c[1] += int(x.numel() * x.element_size() * share)
 
 
 def count_collectives(dist):
     """``serve``'s `wrap_dist`: runs in every rank process."""
     return CountingDist(dist)
+
+
+def count_collectives_by_axis(dist):
+    return CountingDist(dist, by_axis=True)
 
 
 def near_tie_flips(torch, ref_logits, tokens, vocab, margin=0.05):
@@ -1431,6 +1431,246 @@ def sharded_phase(torch, M, kvcache, smi, device="cuda", **cut):
     return out
 
 
+TRAIN_SHARDED_LAYERS = 4   # of olmoe-1b-7b's 16: ~1.9 B params over four ranks
+EXPERT_LEAVES = ("ffn/w_gate", "ffn/w_up", "ffn/w_down")
+
+
+def silent_experts(params, grads):
+    """The local experts of this rank whose reduced gradient is zero in
+    some expert weight: ["stack/i/ffn/w_gate expert e", ...]."""
+    from repro_torch.training.checkpoint import flatten
+    out = []
+    for key, g in zip(flatten(params), grads):
+        if key.endswith(EXPERT_LEAVES):
+            dead = (g.flatten(1).abs().amax(1) == 0).nonzero().flatten().tolist()
+            out += [f"{key} expert {e}" for e in dead]
+    return out
+
+
+def f32_train_gate(mesh, dist, dev, gate):
+    """One f32 training step's loss and gradients across the ranks (FSDP
+    on, `gate`'s plan knobs) against the single-device port on the same
+    card, weights (the global draw from the seed) and tokens, with the
+    sharded run's MoE capacity groups (batch shards x sequence shards).
+    Top-k routing is discontinuous: hidden states that differ in the last
+    bits (another summation order) send a token whose k-th and (k+1)-th
+    router probabilities nearly tie to another expert, and that token's
+    gradients then differ at O(1). So the gated reference replays the
+    sharded run's expert choices (each rank's top-k indices, recorded and
+    gathered; the gates recomputed from the reference's own router
+    probabilities), and a second reference with its own routing is
+    reported beside it, with the number of tokens it routes otherwise.
+    Every gradient leaf is gathered to its global shape; rank 0 computes
+    the references while the others wait. Returns (on rank 0) the losses,
+    their relative errors, and the worst gradient errors over their
+    leaf's largest reference magnitude."""
+    import torch
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.convert import shard_leaf, unshard_leaf
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import job_config, mesh_axes
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import moe as moe_mod
+    from repro_torch.sharding.plans import make_plan
+    from repro_torch.sharding.specs import spec_leaves
+    from repro_torch.training.checkpoint import flatten
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    t0 = time.perf_counter()
+    cfg = job_config(gate)
+    B, S = gate["batch"], gate["seq"]
+    cell = ShapeCell("t", S, B, "train")
+    plan = make_plan(cfg, cell, mesh_axes(mesh.shape), mesh.shape, fsdp=True,
+                     ring_attn=bool(gate.get("ring_attn")))
+    step = steps.build_train_step(cfg, cell, plan, mesh, dist=dist, remat=False)
+    params = steps.init_params(cfg, plan, mesh, seed=gate["seed"], device=dev)
+    tokens = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                                    seed=gate["seed"])).batch(0)
+    local = torch.from_numpy(shard_leaf(tokens, step.in_specs["tokens"], mesh)).to(dev)
+    route, chosen = moe_mod.route, []
+
+    def record(logits, topk, n_real):
+        out = route(logits, topk, n_real)
+        chosen.append(out[1].detach())
+        return out
+    moe_mod.route = record
+    try:
+        loss, grads = step.loss_and_grads(params, {"tokens": local})
+    finally:
+        moe_mod.route = route
+    grads = step.reduce(params, grads)
+    keys, specs = list(flatten(params)), spec_leaves(step.param_specs, params)
+    del params
+    # each rank's tokens are one capacity group, in the ranks' row-major
+    # order: the single device's token order under capacity_groups (dp, sp)
+    chosen = [dist.all_gather(c, tuple(mesh.axes), dim=0) for c in chosen]
+    full = []
+    for g, spec in zip(grads, specs):
+        f = unshard_leaf(g, spec, dist)
+        full.append(f if mesh.rank == 0 else None)
+    del grads
+    out = {"rank": mesh.rank, "plan": repr(plan), "loss": float(loss),
+           "seconds": time.perf_counter() - t0}
+    if mesh.rank != 0:
+        return out
+    groups = (plan.dp, dist.size(plan.seq_axis))
+
+    def reference(replay):
+        flips = []
+
+        def replayed(logits, topk, n_real):
+            gates, own, probs = route(logits, topk, n_real)
+            idx = chosen[len(flips)]
+            flips.append(int((own.sort(-1).values != idx.sort(-1).values).any(-1).sum()))
+            if not replay:
+                return gates, own, probs
+            picked = probs.gather(-1, idx)
+            return picked / torch.clamp(picked.sum(-1, keepdim=True), min=1e-9), idx, probs
+        single = M.init_model(cfg, None, seed=gate["seed"], device=dev)
+        leaves = [p.requires_grad_() for p in flatten(single).values()]
+        moe_mod.route = replayed
+        try:
+            l_ref = M.train_loss(single, {"tokens": torch.from_numpy(tokens).to(dev)}, cfg,
+                                 remat=False, capacity_groups=groups)
+            ref = torch.autograd.grad(l_ref, leaves, materialize_grads=True)
+            l_ref = l_ref.detach()
+        finally:
+            moe_mod.route = route
+        errs = {k: float((a - b).abs().max()) / (float(b.abs().max()) or 1.0)
+                for k, a, b in zip(keys, full, ref)}
+        worst = max(errs, key=errs.get)
+        del single, leaves, ref
+        return {"loss_single_device": float(l_ref),
+                "loss_rel_err": abs(float(loss) - float(l_ref)) / abs(float(l_ref)),
+                "worst_grad_err_over_max": errs[worst], "worst_leaf": worst,
+                "largest_errors": dict(sorted(errs.items(), key=lambda kv: -kv[1])[:6]),
+                "tokens_routed_otherwise_by_layer": flips}
+
+    out.update(reference(replay=True), leaves=len(keys), capacity_groups=list(groups),
+               tokens=B * S)
+    out["own_routing"] = reference(replay=False)
+    del full
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_sharded_rank(mesh, dist, dev, jobs, gates):
+    """Every rank of ``train_sharded_phase``: the training jobs through
+    ``launch.train.train_job`` (each local expert's gradient checked after
+    step 0), then the f32 gates (``f32_train_gate``)."""
+    import torch
+    from repro_torch.launch.train import train_job
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for name, job in jobs.items():
+        silent = []
+
+        def on_grads(i, params, grads):
+            if i == 0:
+                silent.extend(silent_experts(params, grads))
+        out[name] = train_job(mesh, dist, dev, job, on_grads=on_grads)
+        out[name]["silent_experts"] = silent
+    for name, gate in gates.items():
+        out[name] = f32_train_gate(mesh, dist, dev, gate)
+    return out
+
+
+def train_sharded_phase(torch, smi, device="cuda", **cut):
+    """olmoe-1b-7b at published widths cut to TRAIN_SHARDED_LAYERS layers,
+    trained through ``launch.train`` on a 2x2 (data x model) mesh: FSDP
+    over data, EP, TP and the sequence over model; 8 x 512 tokens a step
+    from ``SyntheticLM``, lr 1e-3, 6 steps, bf16, once with the bf16 and
+    once with the fp8 dispatch. nccl with a card per rank, else four ranks
+    on card 0 over gloo. Per rank: step ms (median of steps 3-6),
+    tokens/s, peak GiB, ``moe_gmm`` launches a step, and the collectives
+    of step 3 by kind and axis (``CountingDist``: forward, backward and
+    the gradient reduction apart). Gates: the loss falls (the mean of the
+    last 3 steps under the first 3's); every local expert of every rank
+    has a nonzero gradient after step 1; on the card every rank launches
+    ``moe_gmm`` once per MoE layer and step; the fp8 run's last loss
+    within 5e-2 relative of bf16's (the reference's
+    ``test_a2a_fp8_close_to_baseline`` bound); f32 at 2 layers, TF32 off,
+    FSDP on, and again with ``ring_attn``: the loss within 1e-4 relative
+    of the single-device port's, every gathered gradient within 1e-3 of
+    its leaf's largest magnitude. `device` and `cut` (job keys) are for a
+    rehearsal on the CPU at a reduced size."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.serve import job_config
+    n_cards = torch.cuda.device_count() if device == "cuda" else 0
+    n_ranks = math.prod(SHARDED_MESH)
+    transport = "nccl" if n_cards >= n_ranks else "gloo"
+    base = dict(arch="olmoe-1b-7b", batch=8, seq=512, steps=6, lr=1e-3, seed=SEED,
+                layers=TRAIN_SHARDED_LAYERS, count_step=2)
+    base.update(cut)
+    gate = dict(base, layers=2, config=dict(base.get("config", {}), dtype="float32"))
+    if "layers" in cut:
+        gate["layers"] = cut["layers"]
+    jobs = {"bf16": base, "fp8": dict(base, a2a_fp8=True)}
+    gates = {"f32_fsdp": gate, "f32_fsdp_ring": dict(gate, ring_attn=True)}
+    log("train_sharded.transport", transport=transport, cards=n_cards, ranks=n_ranks,
+        nvidia_smi=smi)
+    t0 = time.perf_counter()
+    ranks = launch_train.serve.spawn(train_sharded_rank, (jobs, gates),
+                                     mesh_shape=SHARDED_MESH, transport=transport,
+                                     device=device, wrap_dist=count_collectives_by_axis,
+                                     timeout=900)
+    out = {"transport": transport, "nvidia_smi": smi, "wall_s": time.perf_counter() - t0,
+           "jobs": {}, "gates": {}}
+    failures = []
+    for name, job in jobs.items():
+        cfg = job_config(job)
+        n_moe = sum(s.ffn == "moe" for s in cfg.layer_specs)
+        per_rank = []
+        for r in range(n_ranks):
+            res = ranks[r][name]
+            step_ms = [1e3 * t for t in res["step_s"]]
+            med = _median(step_ms[2:])
+            row = {"rank": r, "coords": res["coords"], "transport": transport,
+                   "losses": res["losses"], "step_ms": step_ms,
+                   "step_ms_median_3_to_6": med,
+                   "tokens_per_s": job["batch"] * job["seq"] / med * 1e3,
+                   "peak_gib": res.get("peak_bytes", 0) / 2 ** 30,
+                   "param_gib": res["param_bytes"] / 2 ** 30, "init_s": res["init_s"],
+                   "moe_gmm_launches_per_step": res["moe_gmm_launches"],
+                   "step3_part_ms": {k: 1e3 * v for k, v in res["part_s"].items()},
+                   "collectives_step3": res["collectives"],
+                   "silent_experts": res["silent_experts"][:8]}
+            per_rank.append(row)
+            log(f"train_sharded.{name}.rank", **row, nvidia_smi=smi)
+            if device == "cuda" and res["moe_gmm_launches"] != [n_moe] * job["steps"]:
+                failures.append(f"{name} rank {r}: moe_gmm launches "
+                                f"{res['moe_gmm_launches']}, want {n_moe} a step")
+            if res["silent_experts"]:
+                failures.append(f"{name} rank {r}: no gradient reached "
+                                f"{res['silent_experts'][:4]}")
+        losses = per_rank[0]["losses"]
+        if not all(math.isfinite(x) for x in losses) or \
+                not sum(losses[-3:]) < sum(losses[:3]):
+            failures.append(f"{name}: losses {losses} not finite or not falling")
+        out["jobs"][name] = {"ranks": per_rank, "layers": cfg.num_layers,
+                             "of_layers": 16, "dtype": cfg.dtype, "losses": losses,
+                             "a2a_fp8": bool(job.get("a2a_fp8"))}
+    lb, lq = out["jobs"]["bf16"]["losses"][-1], out["jobs"]["fp8"]["losses"][-1]
+    out["fp8_last_loss_rel_to_bf16"] = abs(lq - lb) / abs(lb)
+    if not out["fp8_last_loss_rel_to_bf16"] <= 5e-2:
+        failures.append(f"fp8 dispatch: last loss {lq} against bf16's {lb} "
+                        "(gate 5e-2 relative)")
+    for name in gates:
+        res = ranks[0][name]
+        out["gates"][name] = res
+        log(f"train_sharded.{name}", **res, gates={"loss_rel": 1e-4, "grad_over_max": 1e-3},
+            nvidia_smi=smi)
+        if not (res["loss_rel_err"] <= 1e-4 and res["worst_grad_err_over_max"] <= 1e-3):
+            failures.append(f"{name}: loss rel {res['loss_rel_err']}, worst gradient "
+                            f"{res['worst_grad_err_over_max']} at {res['worst_leaf']}")
+    log("train_sharded.summary", fp8_last_loss_rel_to_bf16=out["fp8_last_loss_rel_to_bf16"],
+        wall_s=out["wall_s"], transport=transport, nvidia_smi=smi)
+    if failures:
+        raise AssertionError("train_sharded.olmoe-1b-7b: " + "; ".join(failures))
+    return out
+
+
 def check_moe_gmm_grad(torch, ref, kmoe, gen):
     """Forward and backward through ``MoeGmm`` (``ops.moe_gmm`` on card
     tensors that want gradients) against autograd of ``moe_gmm_ref``: out,
@@ -1441,7 +1681,12 @@ def check_moe_gmm_grad(torch, ref, kmoe, gen):
     plain forward and the plain backward are timed."""
     from repro_torch.kernels import ops
     results = {}
+    from repro_torch.models.layers.moe import capacity
+    # one rank of train_sharded: 4 x 256 tokens, 32 of the 64 experts, the
+    # capacity buffers of both model ranks after the dispatch (T = ep * C)
+    t_rank = 2 * capacity(4 * 256, 8, 64, 1.5)
     cases = [("train", 64, math.ceil(8 * 512 * 8 * 1.5 / 64), 2048, 1024, "bfloat16", True),
+             ("train_sharded_rank", 32, t_rank, 2048, 1024, "bfloat16", True),
              ("odd_t_f32", 4, 37, 2048, 1024, "float32", True)]
     for name, e, t, d, f, dt, timed in cases:
         tdt = getattr(torch, dt)
@@ -1825,8 +2070,12 @@ def main() -> int:
         gen.manual_seed(SEED)
         phase("kernel.flash_decode_lse", check_flash_decode_lse, torch, ref, kfd, gen)
         sharded = phase("sharded.olmoe-1b-7b", sharded_phase, torch, M, kvcache, smi)
+        tsh = phase("train_sharded.olmoe-1b-7b", train_sharded_phase, torch, smi)
         print(json.dumps({"sharded": {j: {k: v for k, v in r.items() if k != "ranks"}
-                                      for j, r in sharded["jobs"].items()}}))
+                                      for j, r in sharded["jobs"].items()},
+                          "train_sharded": {"gates": tsh["gates"],
+                                            "fp8_last_loss_rel_to_bf16":
+                                            tsh["fp8_last_loss_rel_to_bf16"]}}))
         print(json.dumps({"ok": True, "device": device}))
         return 0
     gen = torch.Generator(device="cuda")
@@ -1861,6 +2110,9 @@ def main() -> int:
 
     # sharded serving: full olmoe-1b-7b on a 2x2 mesh through launch/serve
     sharded = phase("sharded.olmoe-1b-7b", sharded_phase, torch, M, kvcache, smi)
+    free()
+    # training across ranks: olmoe-1b-7b at 4 of 16 layers through launch/train
+    train_sharded = phase("train_sharded.olmoe-1b-7b", train_sharded_phase, torch, smi)
     free()
 
     # the other configurations through the engine, each with its own profile
@@ -2023,6 +2275,10 @@ def main() -> int:
                         **{f"sharded.olmoe-1b-7b.{j} (rank {r['rank']} decode)":
                            r["launches"]["decode"]
                            for j, job in sharded["jobs"].items() for r in job["ranks"]},
+                        **{f"train_sharded.olmoe-1b-7b.{j} (rank {r['rank']}, 6 steps)":
+                           {"moe_gmm": sum(r["moe_gmm_launches_per_step"]),
+                            "flash_decode": 0, "flash_decode_lse": 0}
+                           for j, job in train_sharded["jobs"].items() for r in job["ranks"]},
                         **{f"specdec.{a}.{d}": r[d]["launches"]
                            for a, r in sd.items() for d in ("heads", "oracle")}}
     log("launches_by_path", **launches_by_path)
@@ -2069,14 +2325,15 @@ def main() -> int:
                     "other_timed_shapes": {c: {k: r[k] for k in (
                         "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}
                         for c, r in fd_lse.items() if "ms" in r and c != "sharded_decode"}})
-    kernels[0]["training"] = {k: grad["train"][k] for k in (
-        "shape", "ms", "plain_ms", "bound_ms", "bound_by", "bwd_plain_ms",
-        "bwd_bound_ms", "max_abs_err")}
+    for key, case in (("training", "train"), ("training_sharded_rank", "train_sharded_rank")):
+        kernels[0][key] = {k: grad[case][k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by", "bwd_plain_ms",
+            "bwd_bound_ms", "max_abs_err")}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "kernel_attributes": attrs, "moe_gmm": moe, "flash_decode": fd,
-         "flash_decode_lse": fd_lse, "sharded": sharded,
+         "flash_decode_lse": fd_lse, "sharded": sharded, "train_sharded": train_sharded,
          "parity_f32_max_abs_logit_err": parity, "main_path": main_res,
          "main_paths": others, "dbo": dbo_res, f"dbo.{ds}": dbo_ds, "specdec": sd,
          "mla_share": mla, f"prefill_patches.{vl}": patches,

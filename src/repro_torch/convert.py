@@ -10,7 +10,9 @@ sliding-window layer's ring-buffer cache crosses as it is.
 Like every entry point of the port, the converters put the tensors on the
 card unless the caller passes ``device="cpu"``. ``shard_tree`` cuts a
 global tree into one rank's shards by a spec tree of ``sharding.specs``,
-and ``gather_tree`` puts every rank's shards back together.
+``gather_tree`` puts every rank's shards back together in one process,
+and ``unshard_leaf`` does it for one leaf on every rank at once, through
+the ranks' ``Dist``.
 """
 from __future__ import annotations
 
@@ -125,6 +127,16 @@ def shard_tree(global_tree: Any, specs: Any, mesh, rank: Optional[int] = None) -
     """One rank's shards of a tree of global leaves (numpy from JAX, or the
     port's own global init), by the spec tree of ``sharding.specs``."""
     return _zip_specs(lambda x, s: shard_leaf(x, s, mesh, rank), global_tree, specs)
+
+
+def unshard_leaf(x, spec, dist):
+    """The global leaf on every rank from each rank's shard `x`: an
+    all-gather over each dim's axes (row-major over a tuple, as
+    ``shard_bounds`` cuts). Every rank must call it."""
+    for dim, e in enumerate(spec):
+        if e is not None:
+            x = dist.all_gather(x, e, dim=dim)
+    return x
 
 
 def gather_tree(rank_trees: List[Any], specs: Any, mesh) -> Any:

@@ -7,6 +7,14 @@ on the rank's shards with the rank's ``Dist``, and a builder returns it
 with the specs and the local shapes it expects. There is no jit and no AOT
 lowering: PyTorch runs eagerly.
 
+The train step (``build_train_step``) is the loss, its backward through
+the Dist's differentiable collectives, ``reduce_grads`` (a psum of each
+gradient over every mesh axis its spec does not shard: see
+``sharding.dist`` for why that completes it) and one AdamW update of the
+rank's shards, in place. JAX's step under ``check_vma=False`` transposes
+the loss's psums to psums, so its gradients are not its own single
+device's (ROADMAP queue 3); the port's are.
+
 ``init_params`` draws the global weights leaf by leaf from one seed and
 keeps this rank's shards, so every rank (and a single device given the
 same seed) holds the same model and no rank ever holds all of it.
@@ -23,13 +31,15 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeCell
-from repro_torch.convert import shard_tree
+from repro_torch.convert import shard_tree, tree_leaves
 from repro_torch.models import model as M
 from repro_torch.models.layers import common
 from repro_torch.sharding.dist import Dist, NullDist
 from repro_torch.sharding.plans import ShardingPlan, make_plan
-from repro_torch.sharding.specs import (P, batch_specs, cache_specs, local_shape,
-                                        param_specs, shard_bounds, shard_count)
+from repro_torch.sharding.specs import (P, axes_of, batch_specs, cache_specs,
+                                        local_shape, param_specs, shard_bounds,
+                                        shard_count, spec_leaves)
+from repro_torch.training import compression, optim
 
 
 def dist_for(mesh, transport: Optional[str]) -> Dist:
@@ -113,9 +123,89 @@ def build_decode_step(cfg: ModelConfig, shape: ShapeCell, plan: ShardingPlan,
     return Step(step, dist, plan, param_specs(cfg, plan), specs, cspecs, loc)
 
 
-def build_train_step(*a, **kw):
-    raise NotImplementedError("the sharded train step comes with training "
-                              "across ranks (ROADMAP queue 1, item 5b)")
+def reduce_grads(grads, leaf_specs, plan: ShardingPlan, dist: Dist, *,
+                 compress_axis: Optional[str] = None, errs=None):
+    """Sum each gradient (a list, as ``torch.autograd.grad`` gives them)
+    over every mesh axis its spec (the matching entry of `leaf_specs`:
+    ``specs.spec_leaves(param_specs, params)``) does not shard. With
+    `compress_axis`, the sum over that axis is ``compressed_psum`` (int8,
+    error feedback from `errs`, a list of residuals replaced in place).
+    Returns the list of reduced gradients."""
+    out = []
+    with torch.no_grad():
+        for i, (g, spec) in enumerate(zip(grads, leaf_specs)):
+            named = axes_of(spec)
+            for ax in plan.mesh_axes:
+                if ax in named or dist.size(ax) == 1:
+                    continue
+                if ax == compress_axis:
+                    g, errs[i] = compression.compressed_psum(g, ax, dist, errs[i])
+                else:
+                    g = dist.psum(g, ax)
+            out.append(g)
+    return out
+
+
+@dataclass
+class TrainStep(Step):
+    """step(params, opt_state, batch) -> (params, opt_state, loss): the
+    three parts below in a row, the update in place. `batch` holds this
+    rank's block of the tokens ([B_loc, S_loc]); `opt_specs` is the
+    optimizer state's spec tree."""
+    cfg: Optional[ModelConfig] = None
+    opt_specs: Any = None
+    remat: bool = True
+    lr: float = 3e-4
+
+    def loss_and_grads(self, params, batch):
+        """(loss, gradients of the rank's shards in ``tree_leaves`` order),
+        before their reduction across ranks."""
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = M.train_loss(params, batch, self.cfg, self.plan, self.dist,
+                            remat=self.remat, param_specs=self.param_specs)
+        return loss.detach(), torch.autograd.grad(loss, leaves, materialize_grads=True)
+
+    def reduce(self, params, grads):
+        return reduce_grads(grads, spec_leaves(self.param_specs, params), self.plan,
+                            self.dist)
+
+    def update(self, params, grads, opt_state):
+        return optim.update(params, grads, opt_state, lr=self.lr)
+
+    def __call__(self, params, opt_state, batch):
+        loss, grads = self.loss_and_grads(params, batch)
+        grads = self.reduce(params, grads)
+        params, opt_state = self.update(params, grads, opt_state)
+        return params, opt_state, loss
+
+
+def check_train_plan(plan: ShardingPlan):
+    """A training plan must split the global batch over every data axis:
+    ranks holding the same rows would each add the whole gradient."""
+    dp = 1
+    for ax, n in zip(plan.mesh_axes, plan.mesh_shape):
+        if ax in ("pod", "data"):
+            dp *= n
+    if dp > 1 and plan.dp != dp:
+        raise ValueError(f"the global batch must split over the data axes "
+                         f"({dp} ranks); plan has batch_axes {plan.batch_axes}")
+
+
+def build_train_step(cfg: ModelConfig, shape: ShapeCell, plan: ShardingPlan,
+                     mesh=None, *, dist: Optional[Dist] = None,
+                     transport: Optional[str] = None, remat: bool = True,
+                     lr: float = 3e-4) -> TrainStep:
+    """One training step on this rank (see ``TrainStep``), with its param
+    specs (FSDP included on a plan with ``fsdp_axis``), the optimizer
+    state's (``optim.state_specs``) and the local shape of the tokens."""
+    check_train_plan(plan)
+    dist = dist or dist_for(mesh, transport)
+    shapes, specs = batch_struct(cfg, shape, plan)
+    pspecs = param_specs(cfg, plan)
+    return TrainStep(None, dist, plan, pspecs, specs, None, _local(shapes, specs, mesh),
+                     cfg=cfg, opt_specs=optim.state_specs(pspecs), remat=remat, lr=lr)
 
 
 def build_cell(cfg: ModelConfig, shape: ShapeCell, mesh, *, fsdp: bool = True,
@@ -125,7 +215,7 @@ def build_cell(cfg: ModelConfig, shape: ShapeCell, mesh, *, fsdp: bool = True,
     plan = make_plan(cfg, shape, mesh.axes, mesh.shape, fsdp=fsdp,
                      **(plan_kw or {}))
     if shape.kind == "train":
-        return build_train_step(cfg, shape, plan, mesh), plan
+        return build_train_step(cfg, shape, plan, mesh, transport=transport), plan
     build = build_prefill if shape.kind == "prefill" else build_decode_step
     return build(cfg, shape, plan, mesh, transport=transport), plan
 

@@ -39,10 +39,21 @@ Sharded (one rank's shards, as inside JAX's ``shard_map``):
            kernel on the card), and ``lse_combine`` merges the ranks. W_o
            is row-sharded under ``head_tp``: each rank projects its heads
            and a psum adds them (``_decode_out_proj``).
+  ring     ``plan.ring_attn`` under ``head_tp`` (train and prefill, full
+           attention layers): q, k, v from the rank's own positions, the
+           K/V chunks rotating around the sequence ring (``ring_attention``)
+           in place of the all-gather of x. The head-sharded W_q and W_o are
+           all-gathered over the tp axis first, so that each rank attends
+           with every query head against every KV head of the chunk in
+           hand, and no reduction mixes positions. The JAX path keeps W_q
+           head-sharded while the sequence is sharded over the same axis:
+           the chunk arriving from rank r' is used with this rank's KV
+           slice as if it were r''s, and its final psum over tp adds the
+           head partials of different position chunks (ROADMAP queue 3).
 ``attn_chunk_lse`` (``kernels.ref``) is the JAX decode core, and the plain
-version of ``ops.flash_decode_lse``. Ring attention comes with training
-across ranks (ROADMAP queue 1, item 5b); cross-attention under head-TP
-and over a sharded encoder cache with the sharded mixers (item 5c).
+version of ``ops.flash_decode_lse``. Cross-attention under head-TP and
+over a sharded encoder cache comes with the sharded mixers (ROADMAP queue
+1, item 5c).
 """
 from __future__ import annotations
 
@@ -105,6 +116,51 @@ def flash_attn(q, k, v, *, causal: bool, window: int = 0, q_offset=0,
         m = m_new
     out = acc / torch.clamp(lsum, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def ring_attention(q, k, v, *, seq_ax, dist: Dist, causal: bool = True):
+    """Attention of this rank's queries over the whole sequence, the KV
+    chunks rotating around the `seq_ax` ring. q: [B, Sq_loc, H, hd], the
+    rank's positions, every head; k, v: [B, Sk_loc, KH, hd], the rank's
+    positions, every KV head. At step s the chunk in hand came from rank
+    (r - s) mod n; an online softmax over the steps accumulates in f32 as
+    ``flash_attn`` does, fully future chunks masked. Returns
+    [B, Sq_loc, H * hd]."""
+    B, sq, H, hd = q.shape
+    sk, KH = k.shape[1], k.shape[2]
+    n = dist.size(seq_ax)
+    if n == 1:
+        return flash_attn(q, k, v, causal=causal).reshape(B, sq, H * hd)
+    r = dist.index(seq_ax)
+    g = H // KH
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    pos_q = r * sq + torch.arange(sq, device=dev)
+    qr = q.reshape(B, sq, KH, g, hd).permute(0, 2, 3, 1, 4).float()  # [B,KH,g,Sq,hd]
+    m = torch.full((B, KH, g, sq), NEG_INF, dtype=torch.float32, device=dev)
+    lsum = torch.zeros((B, KH, g, sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, KH, g, sq, hd), dtype=torch.float32, device=dev)
+    kc, vc = k, v
+    for step in range(n):
+        pos_k = ((r - step) % n) * sk + torch.arange(sk, device=dev)
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qr,
+                         kc.permute(0, 2, 1, 3).float()) * scale
+        mask = pos_k[None, :] <= pos_q[:, None] if causal else \
+            torch.ones((sq, sk), dtype=torch.bool, device=dev)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        corr = torch.exp(m - m_new)
+        lsum = lsum * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhgqk,bhkd->bhgqd", p.to(v.dtype).float(),
+            vc.permute(0, 2, 1, 3).float())
+        m = m_new
+        if step < n - 1:
+            kc = dist.roll(kc, seq_ax, shift=1)
+            vc = dist.roll(vc, seq_ax, shift=1)
+    out = acc / torch.clamp(lsum, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, sq, H * hd).to(q.dtype)
 
 
 def lse_combine(o, m, lsum, axis, dist: Dist):
@@ -174,9 +230,7 @@ def attention_fwd(params, x, cfg, plan: ShardingPlan, dist: Dist, *,
 
     if plan.attn_mode == "head_tp":
         if plan.ring_attn and window == 0 and dist.size(seq_ax) > 1:
-            raise NotImplementedError(
-                "ring attention comes with training across ranks (ROADMAP "
-                "queue 1, item 5b)")
+            return _ring_fwd(params, x, cfg, plan, dist, pos_local), cache
         xg = dist.all_gather(x, seq_ax, dim=1)                     # [B, S, D]
         S = xg.shape[1]
         q = (xg @ params["w_q"]).reshape(B, S, -1, hd)             # local heads
@@ -202,6 +256,23 @@ def attention_fwd(params, x, cfg, plan: ShardingPlan, dist: Dist, *,
     o = flash_attn(q, k, v, causal=True, window=window, q_offset=q_offset)
     y = o.reshape(B, s_loc, -1) @ params["w_o"]
     return y, cache
+
+
+def _ring_fwd(params, x, cfg, plan: ShardingPlan, dist: Dist, pos_local):
+    """The ring path of ``attention_fwd``: W_q (columns) and W_o (rows)
+    gathered over the tp axis to every head, q, k, v of the rank's
+    positions, ``ring_attention``, and the whole output projection: y of
+    the rank's positions, no reduction."""
+    B, s_loc, _ = x.shape
+    w_q = dist.all_gather(params["w_q"], plan.tp_axis, dim=1)
+    w_o = dist.all_gather(params["w_o"], plan.tp_axis, dim=0)
+    q = (x @ w_q).reshape(B, s_loc, cfg.num_heads, cfg.head_dim)
+    k = torch.einsum("bsd,dkh->bskh", x, params["w_k"])
+    v = torch.einsum("bsd,dkh->bskh", x, params["w_v"])
+    q = apply_rope(q, pos_local, cfg.rope_theta)
+    k = apply_rope(k, pos_local, cfg.rope_theta)
+    o = ring_attention(q, k, v, seq_ax=plan.seq_axis, dist=dist)
+    return o @ w_o
 
 
 def _window_cache_from_prefill(k_c, v_c, window: int, plan: ShardingPlan,

@@ -7,9 +7,12 @@ embedding table and LM head are vocab-sharded, the dense FFN's hidden dim
 is sharded over the tensor-parallel axis (or over data x model with
 ``ffn_2d``), and prefill tokens are sequence-sharded (Megatron-SP:
 all-gather before, reduce-scatter after). ``fp8_all_gather`` sends e4m3
-bytes with per-row f32 scales. ``fsdp_gather`` has no counterpart yet: it
-comes with training across ranks (ROADMAP queue 1, item 5b). Weight
-layout: matmul weights are stored [in, out].
+bytes with per-row f32 scales; as in JAX, its gradient reaches x through
+the scales only (the bytes are integers). ``fsdp_spec`` and
+``fsdp_gather`` shard a training plan's leaves over ``plan.fsdp_axis``
+and gather them back for a layer's use; the gather's backward is the
+reduce-scatter of the gradient. Weight layout: matmul weights are stored
+[in, out].
 Init functions draw from an explicit ``torch.Generator`` onto an explicit
 device.
 """
@@ -22,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.sharding.dist import Dist
 from repro_torch.sharding.plans import ShardingPlan, pad_to, VOCAB_PAD
+from repro_torch.sharding.specs import P
 
 INT32_MAX = 2 ** 31 - 1
 
@@ -109,7 +113,10 @@ def fp8_dequantize(qb, scale, dtype):
 
 def fp8_all_gather(x, axis, dist: Dist, dim: int):
     """All-gather with an fp8 (e4m3) wire format and per-row f32 scales:
-    half the bytes of bf16. The result comes back in x's dtype."""
+    half the bytes of bf16. The result comes back in x's dtype. Its
+    gradient is JAX's: the uint8 bytes carry none, so x gets only what
+    flows back through each row's scale (amax / 448) to the row's largest
+    magnitude."""
     qb, scale = fp8_quantize(x)
     qg = dist.all_gather(qb, axis, dim=dim)
     sg = dist.all_gather(scale, axis, dim=dim)
@@ -198,8 +205,10 @@ def lm_logits(params, x, cfg, plan: ShardingPlan, dist: Dist):
 def xent_per_token(logits, labels, plan: ShardingPlan, dist: Dist):
     """Cross entropy of each position without the full-vocab logits on any
     rank: logits [B, T, V_loc] f32 (vocab-sharded, padded ids at -inf, so
-    they get no gradient), labels [B, T] global ids -> [B, T]. The max is
-    detached (JAX's ``stop_gradient``): subtracting it is numerics only."""
+    they get no gradient), labels [B, T] global ids -> [B, T]. Every rank
+    of the vocab axis must hold the same B x T positions: the max and the
+    sums over that axis are per position. The max is detached (JAX's
+    ``stop_gradient``): subtracting it is numerics only."""
     v_loc = logits.shape[-1]
     r = dist.index(plan.vocab_axis)
     m = dist.pmax(logits.detach().amax(dim=-1), plan.vocab_axis)           # [B, T]
@@ -228,3 +237,37 @@ def greedy_sample(logits, cfg, plan: ShardingPlan, dist: Dist):
     global_idx = r * v_loc + local_idx
     cand = torch.where(local_val >= vmax, global_idx, INT32_MAX)
     return (-dist.pmax(-cand, plan.vocab_axis)).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# FSDP
+# ---------------------------------------------------------------------------
+
+def fsdp_spec(shape, base_spec: P, plan: ShardingPlan) -> P:
+    """`base_spec` with ``plan.fsdp_axis`` on the first dim that no axis
+    shards yet and that the axis divides (JAX's rule)."""
+    if plan.fsdp_axis is None:
+        return base_spec
+    n = plan.axis_size(plan.fsdp_axis)
+    entries = list(base_spec) + [None] * (len(shape) - len(base_spec))
+    for i, (dim, e) in enumerate(zip(shape, entries)):
+        if e is None and dim % n == 0 and dim >= n:
+            entries[i] = plan.fsdp_axis
+            return P(*entries)
+    return base_spec
+
+
+def fsdp_gather(params, specs, plan: ShardingPlan, dist: Dist):
+    """The leaves of `params` (a dict tree) that `specs` shards over
+    ``plan.fsdp_axis``, all-gathered back along that dim; the rest as they
+    are. Under autograd the gather's backward reduce-scatters the
+    gradient to the shards."""
+    fsdp = plan.fsdp_axis
+    if fsdp is None or dist.size(fsdp) == 1:
+        return params
+    if isinstance(specs, P):
+        for dim, e in enumerate(specs):
+            if e == fsdp:
+                return dist.all_gather(params, fsdp, dim=dim)
+        return params
+    return {k: fsdp_gather(v, specs[k], plan, dist) for k, v in params.items()}

@@ -14,7 +14,9 @@ one ``moe_gmm`` launch serves every group. ``capacity_groups=1`` is the
 JAX single-call semantics (one group over all B*T tokens).
 ``capacity_groups=(gb, gt)`` makes a grid of groups, gb blocks of rows by
 gt blocks of positions: the groups of a mesh whose ranks each hold one
-such block, so that one device reproduces a sharded run's drops.
+such block, so that one device reproduces a sharded run's drops. The
+load-balance loss is then the mean of the groups' losses, as a sharded
+``train_loss`` averages its ranks'.
 
 Expert parallelism (``plan.ep_axis`` larger than 1): each rank routes its
 own tokens with the capacity of its own token count, builds the
@@ -100,9 +102,10 @@ def slot_assignment(idx, e_pad: int, cap: int):
 
 def aux_load_balance_loss(probs, idx, n_real: int):
     """Switch-transformer load-balance loss over the real experts:
-    probs [T, E], idx [T, k] -> scalar f32."""
-    onehot = F.one_hot(idx, probs.shape[-1]).float().sum(dim=1)          # [T, E]
-    return n_real * torch.sum(onehot.mean(dim=0) * probs.mean(dim=0))
+    probs [..., T, E], idx [..., T, k] -> scalar f32, the mean over the
+    leading (group) dims of each group's loss."""
+    onehot = F.one_hot(idx, probs.shape[-1]).float().sum(dim=-2)        # [..., T, E]
+    return n_real * torch.sum(onehot.mean(dim=-2) * probs.mean(dim=-2), dim=-1).mean()
 
 
 def moe_ffn(params, x, cfg, plan: ShardingPlan, dist: Dist, *,
@@ -110,8 +113,8 @@ def moe_ffn(params, x, cfg, plan: ShardingPlan, dist: Dist, *,
     """x: [B, T, D], this rank's tokens. Tokens split into `capacity_groups`
     equal groups along the flattened B*T axis (or a (rows, positions) grid
     of groups), each with its own capacity. Returns y [B, T, D], or (y, aux)
-    with `collect_aux`: the load-balance loss over all B*T tokens, as the
-    JAX layer returns it (training runs one group)."""
+    with `collect_aux`: the load-balance loss, over all B*T tokens for one
+    group as the JAX layer returns it, the mean of the groups' for more."""
     if isinstance(capacity_groups, tuple):
         gb, gt = capacity_groups
         B, t, d = x.shape
@@ -179,5 +182,6 @@ def moe_ffn(params, x, cfg, plan: ShardingPlan, dist: Dist, *,
             sh = dist.psum(sh, plan.tp_axis)
         y = y + sh
     if collect_aux:
-        return y, aux_load_balance_loss(probs, idx, m.num_experts)
+        return y, aux_load_balance_loss(probs.reshape(G, n_tok // G, -1),
+                                        idx.reshape(G, n_tok // G, k), m.num_experts)
     return y

@@ -85,46 +85,64 @@ def _encode(params, frames, cfg, plan: ShardingPlan, dist: Dist):
 
 
 def train_loss(params, batch, cfg: ModelConfig, plan: Optional[ShardingPlan] = None,
-               dist: Optional[Dist] = None, *, remat: bool = True):
-    """batch: tokens [B, S] (+ "patches" or "frames"). The global-mean LM
-    loss: each position predicts the next token, the last position is
-    masked; with experts, plus ``router_aux_loss_coef`` times the
-    load-balance loss averaged over the layers. A scalar f32 tensor."""
+               dist: Optional[Dist] = None, *, remat: bool = True,
+               param_specs=None, capacity_groups=None):
+    """batch: tokens [B, S] (+ "patches" or "frames"), this rank's block.
+    The global-mean LM loss: each position predicts the next token, the
+    last position is masked; with experts, plus ``router_aux_loss_coef``
+    times the load-balance loss averaged over the layers (and over the
+    ranks, each of which routes its own tokens). A scalar f32 tensor, the
+    same on every rank.
+
+    Sequence-sharded (Megatron-SP): after the final norm the hidden states
+    and the ids are all-gathered over the sequence, so that every rank of
+    the vocab axis holds the logits of the same positions in its vocab
+    shard; the cross entropy's max and sums over the vocab axis then
+    reduce one position at a time, and the token losses are summed over
+    the batch axes only (every sequence rank holds all positions). The JAX
+    function reduces the logits of *different* position chunks over the
+    vocab axis, which is also the sequence axis (ROADMAP queue 3).
+    With `param_specs` on a plan with ``fsdp_axis``, the FSDP shards of
+    ``embed``, ``final_norm`` (``enc_norm``) and each layer are gathered
+    where they are used. `capacity_groups`: the MoE capacity groups of
+    ``moe.moe_ffn`` (default one), to reproduce a sharded run's drops on
+    one device."""
     plan, dist = _plan_dist(plan, dist, "train")
-    if plan.fsdp_axis is not None:
-        raise NotImplementedError("FSDP comes with training across ranks "
-                                  "(ROADMAP queue 1, item 5b)")
+    stack_specs = None
+    if param_specs is not None and plan.fsdp_axis is not None:
+        params = dict(params)
+        for k in ("embed", "final_norm", "enc_norm"):
+            if k in params:
+                params[k] = common.fsdp_gather(params[k], param_specs[k], plan, dist)
+        stack_specs = param_specs["stack"]
     x = _embed_inputs(params, batch, cfg, plan, dist)
     enc_out = None
     if cfg.is_encoder_decoder:
         enc_out = _encode(params, batch["frames"], cfg, plan, dist)
     x, _, aux = tf.apply_stack(params["stack"], x, cfg, plan, dist, mode="train",
-                               collect_aux=True, remat=remat, enc_out=enc_out)
+                               collect_aux=True, remat=remat, enc_out=enc_out,
+                               param_specs=stack_specs,
+                               capacity_groups=capacity_groups)
     x = common.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    logits = common.lm_logits(params["embed"], x, cfg, plan, dist)
-
     tokens = batch["tokens"]
-    B, s_loc = tokens.shape
     seq_ax = plan.seq_axis
-    n_seq = dist.size(seq_ax)
-    # labels = next token; the first token of the next sequence shard comes
-    # by ring shift, and the last global position is masked
-    nxt = dist.roll(tokens[:, :1], seq_ax, shift=-1) if n_seq > 1 \
-        else torch.zeros_like(tokens[:, :1])
-    labels = torch.cat([tokens[:, 1:], nxt], dim=1)
-    gpos = dist.index(seq_ax) * s_loc + torch.arange(s_loc, device=tokens.device)
-    w = (gpos < s_loc * n_seq - 1).float()[None, :]
+    if dist.size(seq_ax) > 1:
+        x = dist.all_gather(x, seq_ax, dim=1)                      # [B, S, D]
+        tokens = dist.all_gather(tokens, seq_ax, dim=1)
+    logits = common.lm_logits(params["embed"], x, cfg, plan, dist)
+    # labels = next token; the last position is masked
+    S = tokens.shape[1]
+    labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
+    w = (torch.arange(S, device=tokens.device) < S - 1).float()[None, :]
     token_loss = common.xent_per_token(logits, labels, plan, dist) * w
 
-    reduce_axes = tuple(a for a in (plan.batch_axes or ()) + ((seq_ax,) if seq_ax else ())
-                        if a)
     loss_sum, cnt = token_loss.sum(), w.expand_as(token_loss).sum()
-    for ax in reduce_axes:
+    for ax in plan.batch_axes or ():
         loss_sum, cnt = dist.psum(loss_sum, ax), dist.psum(cnt, ax)
     loss = loss_sum / torch.clamp(cnt, min=1.0)
     if cfg.moe is not None:
         aux_mean = aux / max(cfg.num_layers, 1)
-        for ax in reduce_axes:
+        for ax in (plan.batch_axes or ()) + ((seq_ax,) if seq_ax else ()):
             aux_mean = dist.psum(aux_mean, ax) / dist.size(ax)
         loss = loss + cfg.moe.router_aux_loss_coef * aux_mean
     return loss

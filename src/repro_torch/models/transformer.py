@@ -217,13 +217,18 @@ def apply_stack(params: List[dict], x, cfg: ModelConfig, plan: ShardingPlan,
                 enc_len: int = 0, enc_out=None, collect_aux: bool = False,
                 remat: bool = False, n_layers: Optional[int] = None,
                 period: Optional[Tuple[LayerSpec, ...]] = None,
-                capacity_groups=None):
+                capacity_groups=None, param_specs=None):
     """caches: per-layer list (decode) or None (train/prefill; prefill
     creates them). Returns (x, new_caches | None), or with `collect_aux`
     (x, new_caches | None, aux): the MoE layers' load-balance losses
     summed. `remat` recomputes each whole period's activations in the
     backward (``torch.utils.checkpoint``, as JAX checkpoints the scan body
-    over periods); the remainder layers keep theirs, as in JAX."""
+    over periods); the remainder layers keep theirs, as in JAX. With
+    `param_specs` (one spec dict per layer) on a plan with
+    ``fsdp_axis``, each layer's FSDP shards are gathered just before it
+    runs (``common.fsdp_gather``), inside the checkpointed period under
+    `remat`, so that the backward gathers them again instead of keeping
+    them (JAX gathers in the scan body)."""
     if remat and mode != "train":
         raise ValueError("remat recomputes training activations; it keeps no cache")
     specs = stack_specs(cfg, n_layers, period)
@@ -234,7 +239,10 @@ def apply_stack(params: List[dict], x, cfg: ModelConfig, plan: ShardingPlan,
         new = []
         for i in range(lo, hi):
             c_in = caches[i] if caches is not None else None
-            x, c, a = apply_layer(specs[i], params[i], x, cfg, plan, dist,
+            p_i = params[i]
+            if param_specs is not None:
+                p_i = common.fsdp_gather(p_i, param_specs[i], plan, dist)
+            x, c, a = apply_layer(specs[i], p_i, x, cfg, plan, dist,
                                   mode=mode, cache=c_in, pos=pos, enc_len=enc_len,
                                   enc_out=enc_out, collect_aux=True,
                                   capacity_groups=capacity_groups)

@@ -23,6 +23,35 @@ order, ``all_to_all(split_dim, concat_dim)`` sends chunk j of
 ``split_dim`` to axis index j and concatenates what it receives along
 ``concat_dim``, and ``ppermute`` leaves zeros on a rank that receives
 nothing. ``index`` of a tuple of axes is row-major over the tuple.
+
+Gradients. Every collective of a tensor that wants a gradient is a
+``torch.autograd.Function``, so that a training step differentiates
+through it on each rank. The convention: the loss is one scalar that
+every rank holds (the psums of ``train_loss`` replicate it), each rank's
+backward is seeded with 1, and each rank's gradients are the parts of the
+single-device gradient that its own inputs produce. ``launch.steps.
+reduce_grads`` then sums a leaf's gradient over every mesh axis its spec
+does not shard, which completes it. The rules that follow from it:
+  all_gather       <-> reduce_scatter (the cotangents of every rank's copy
+                       are summed into the shard's owner), and back;
+  all_to_all       the inverse all_to_all (split and concat swapped);
+  ppermute / roll  the inverse permutation;
+  psum             the identity: the summands are partials that the
+                   ranks hold apart, and every rank's replica of the sum
+                   hands its cotangent to its own summand once. (JAX
+                   under ``check_vma=False`` transposes a psum to a psum,
+                   which counts the seed n times: ROADMAP queue 3);
+  pmax             no gradient: its input is detached, as JAX's callers
+                   ``stop_gradient`` it.
+A parameter used after a psum, in a region every rank computes alike,
+would get its whole gradient on each rank and be counted n times by
+``reduce_grads``; no layer of the port has one (the final norm runs
+before the sequence gather, on the rank's own positions).
+``observer``, when set, is called as ``observer(op, x, axis, **info)``
+before each collective with more than one rank (``info``: split_dim and
+concat_dim of an all-to-all; backward=True for the gathers, scatters and
+all-to-alls a backward runs), and as ``observer("p2p", t, None)`` for each
+tensor ``exchange`` sends: ``chip_smoke.py`` counts bytes with it.
 """
 from __future__ import annotations
 
@@ -44,6 +73,7 @@ class Dist:
         self._sizes = dict(axis_sizes)
         self.mesh = mesh
         self.transport = transport
+        self.observer = None
         if mesh is not None and transport not in TRANSPORTS:
             raise ValueError(f"transport {transport!r}: one of {TRANSPORTS}")
 
@@ -111,6 +141,8 @@ class Dist:
         """Point-to-point: send each (tensor, global rank) and receive
         into each (buffer, global rank), all at once; buffers are filled
         in place."""
+        for t, _ in sends:
+            self._observe("p2p", t, None)
         stage = []
         ops = []
         for t, peer in sends:
@@ -133,10 +165,17 @@ class Dist:
             if h is not buf:
                 buf.copy_(h)
 
+    def _observe(self, op, x, axis, **info):
+        if self.observer is not None:
+            self.observer(op, x, axis, **info)
+
     # ------------- collectives -------------
-    def _reduce(self, x, axis, op):
-        if self.size(axis) == 1:
-            return x
+    # The raw collectives (``_psum`` ...) run on tensors without a graph;
+    # the public ones wrap them in autograd Functions when x wants a
+    # gradient (a collective over one rank is the identity either way).
+
+    def _reduce(self, x, axis, op, name):
+        self._observe(name, x, axis)
         group = self._need_mesh(axis).group(axis)
 
         def run(inp, out):
@@ -144,51 +183,40 @@ class Dist:
             td.all_reduce(out, op=op, group=group)
         return self._run(run, x, x.shape)
 
-    def psum(self, x, axis: Optional[AxisName]):
-        return self._reduce(x, axis, td.ReduceOp.SUM)
+    def _psum(self, x, axis):
+        return self._reduce(x, axis, td.ReduceOp.SUM, "psum")
 
-    def pmax(self, x, axis: Optional[AxisName]):
-        return self._reduce(x, axis, td.ReduceOp.MAX)
-
-    def all_gather(self, x, axis: Optional[AxisName], dim: int = 0):
-        """Tiled all-gather along tensor dim `dim` over mesh axis `axis`."""
+    def _all_gather(self, x, axis, dim, backward=False):
         n = self.size(axis)
-        if n == 1:
-            return x
+        self._observe("all_gather", x, axis, backward=backward)
         group = self._need_mesh(axis).group(axis)
         xt = x.movedim(dim, 0)
         out = self._run(lambda i, o: td.all_gather_into_tensor(o, i, group=group),
                         xt, (n * xt.shape[0],) + tuple(xt.shape[1:]))
-        return out.movedim(0, dim)
+        return out.movedim(0, dim).contiguous()
 
-    def reduce_scatter(self, x, axis: Optional[AxisName], dim: int = 0):
-        """Tiled psum_scatter along tensor dim `dim` over mesh axis `axis`."""
+    def _reduce_scatter(self, x, axis, dim, backward=False):
         n = self.size(axis)
-        if n == 1:
-            return x
-        group = self._need_mesh(axis).group(axis)
         xt = x.movedim(dim, 0)
         if xt.shape[0] % n:
             raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
                              f"does not split {n} ways")
+        self._observe("reduce_scatter", x, axis, backward=backward)
+        group = self._need_mesh(axis).group(axis)
         out = self._run(
             lambda i, o: td.reduce_scatter_tensor(o, i, op=td.ReduceOp.SUM,
                                                   group=group),
             xt, (xt.shape[0] // n,) + tuple(xt.shape[1:]))
-        return out.movedim(0, dim)
+        return out.movedim(0, dim).contiguous()
 
-    def all_to_all(self, x, axis: Optional[AxisName], split_dim: int,
-                   concat_dim: int):
-        """``lax.all_to_all(..., tiled=True)``: chunk j of `split_dim` goes
-        to axis index j; the chunks received from indices 0..n-1 are
-        concatenated along `concat_dim`."""
+    def _all_to_all(self, x, axis, split_dim, concat_dim, backward=False):
         n = self.size(axis)
-        if n == 1:
-            return x
-        group = self._need_mesh(axis).group(axis)
         if x.shape[split_dim] % n:
             raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} "
                              f"does not split {n} ways")
+        self._observe("all_to_all", x, axis, split_dim=split_dim,
+                      concat_dim=concat_dim, backward=backward)
+        group = self._need_mesh(axis).group(axis)
         piece = list(x.shape)
         piece[split_dim] //= n
         xs = x.movedim(split_dim, 0)                          # [S, rest...]
@@ -202,12 +230,7 @@ class Dist:
         shape[concat_dim] *= n
         return y.reshape(shape)
 
-    def ppermute(self, x, axis: Optional[AxisName],
-                 perm: Sequence[Tuple[int, int]]):
-        """Send to axis index dst from axis index src for each (src, dst);
-        a rank that receives nothing gets zeros."""
-        if self.size(axis) == 1:
-            return x
+    def _ppermute(self, x, axis, perm):
         mesh = self._need_mesh(axis)
         me, ranks = mesh.index(axis), mesh.group_ranks(axis)
         out = torch.zeros_like(x).contiguous()
@@ -215,12 +238,126 @@ class Dist:
                       [(out, ranks[s]) for s, d in perm if d == me])
         return out
 
+    @staticmethod
+    def _grad(x) -> bool:
+        return torch.is_grad_enabled() and x.requires_grad
+
+    def psum(self, x, axis: Optional[AxisName]):
+        if self.size(axis) == 1:
+            return x
+        if self._grad(x):
+            return _Psum.apply(x, self, axis)
+        return self._psum(x, axis)
+
+    def pmax(self, x, axis: Optional[AxisName]):
+        """No gradient: the input is detached."""
+        if self.size(axis) == 1:
+            return x
+        return self._reduce(x.detach(), axis, td.ReduceOp.MAX, "pmax")
+
+    def all_gather(self, x, axis: Optional[AxisName], dim: int = 0):
+        """Tiled all-gather along tensor dim `dim` over mesh axis `axis`."""
+        if self.size(axis) == 1:
+            return x
+        if self._grad(x):
+            return _AllGather.apply(x, self, axis, dim)
+        return self._all_gather(x, axis, dim)
+
+    def reduce_scatter(self, x, axis: Optional[AxisName], dim: int = 0):
+        """Tiled psum_scatter along tensor dim `dim` over mesh axis `axis`."""
+        if self.size(axis) == 1:
+            return x
+        if self._grad(x):
+            return _ReduceScatter.apply(x, self, axis, dim)
+        return self._reduce_scatter(x, axis, dim)
+
+    def all_to_all(self, x, axis: Optional[AxisName], split_dim: int,
+                   concat_dim: int):
+        """``lax.all_to_all(..., tiled=True)``: chunk j of `split_dim` goes
+        to axis index j; the chunks received from indices 0..n-1 are
+        concatenated along `concat_dim`."""
+        if self.size(axis) == 1:
+            return x
+        if self._grad(x):
+            return _AllToAll.apply(x, self, axis, split_dim, concat_dim)
+        return self._all_to_all(x, axis, split_dim, concat_dim)
+
+    def ppermute(self, x, axis: Optional[AxisName],
+                 perm: Sequence[Tuple[int, int]]):
+        """Send to axis index dst from axis index src for each (src, dst);
+        a rank that receives nothing gets zeros."""
+        if self.size(axis) == 1:
+            return x
+        perm = [tuple(p) for p in perm]
+        if self._grad(x):
+            return _Ppermute.apply(x, self, axis, perm)
+        return self._ppermute(x, axis, perm)
+
     def roll(self, x, axis: Optional[AxisName], shift: int = 1):
         """Ring shift: rank r -> rank (r + shift) % n."""
         n = self.size(axis)
         if n == 1:
             return x
         return self.ppermute(x, axis, [(i, (i + shift) % n) for i in range(n)])
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dist, axis):
+        return dist._psum(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dist, axis, dim):
+        ctx.args = (dist, axis, dim)
+        return dist._all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        dist, axis, dim = ctx.args
+        return dist._reduce_scatter(g, axis, dim, backward=True), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dist, axis, dim):
+        ctx.args = (dist, axis, dim)
+        return dist._reduce_scatter(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        dist, axis, dim = ctx.args
+        return dist._all_gather(g, axis, dim, backward=True), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dist, axis, split_dim, concat_dim):
+        ctx.args = (dist, axis, split_dim, concat_dim)
+        return dist._all_to_all(x, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        dist, axis, split_dim, concat_dim = ctx.args
+        return (dist._all_to_all(g, axis, concat_dim, split_dim, backward=True),
+                None, None, None, None)
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dist, axis, perm):
+        ctx.args = (dist, axis, perm)
+        return dist._ppermute(x, axis, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        dist, axis, perm = ctx.args
+        return dist._ppermute(g, axis, [(d, s) for s, d in perm]), None, None, None
 
 
 class NullDist(Dist):

@@ -9,16 +9,19 @@ dim: None, an axis name, or a tuple of names (a 1-tuple is stored as its
 name, as JAX stores it).
 
 Covered: the GQA attention, dense and MoE FFN, embedding and norm leaves
-of serving plans, and the GQA caches. MLA, Mamba, RWKV and cross-attention
-under a sharded plan come with the sharded mixers (ROADMAP queue 1, item
-5c), FSDP specs with training across ranks (item 5b).
+of serving and training plans, and the GQA caches. A training plan with
+``fsdp_axis`` extends each leaf's spec by ``common.fsdp_spec`` (JAX's
+``init_layer`` / ``init_model`` do it leaf by leaf, from the global
+shapes that ``param_shapes`` gives here). MLA, Mamba, RWKV and
+cross-attention under a sharded plan come with the sharded mixers
+(ROADMAP queue 1, item 5c).
 """
 from __future__ import annotations
 
 from typing import Dict, List
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from repro_torch.sharding.plans import ShardingPlan
+from repro_torch.sharding.plans import VOCAB_PAD, ShardingPlan, pad_to
 
 
 def _entry(e):
@@ -98,15 +101,53 @@ def layer_specs(spec: LayerSpec, cfg: ModelConfig, plan: ShardingPlan) -> dict:
             "norm2": norm_specs(), "ffn": ffn}
 
 
+def param_shapes(cfg: ModelConfig, plan: ShardingPlan) -> dict:
+    """The global shape of every leaf of ``param_specs``' tree, as
+    ``models.model.init_model`` draws it."""
+    d, hd, v = cfg.d_model, cfg.head_dim, pad_to(cfg.vocab_size, VOCAB_PAD)
+    embed = {"table": (v, d)}
+    if not cfg.tie_embeddings:
+        embed["head"] = (d, v)
+    hh = cfg.num_heads * hd
+    attn = {"w_q": (d, hh), "w_k": (d, cfg.num_kv_heads, hd),
+            "w_v": (d, cfg.num_kv_heads, hd), "w_o": (hh, d)}
+    stack = []
+    for spec in cfg.layer_specs:
+        _refuse_sharded_mixer(spec, cfg)
+        if spec.ffn == "dense":
+            ffn = {"w_gate": (d, cfg.d_ff), "w_up": (d, cfg.d_ff), "w_out": (cfg.d_ff, d)}
+        else:
+            m = cfg.moe
+            e, de = m.padded_num_experts(max(plan.ep, 1)), m.d_expert
+            ffn = {"router": (d, e), "w_gate": (e, d, de), "w_up": (e, d, de),
+                   "w_down": (e, de, d)}
+            if m.num_shared_experts:
+                dsh = m.d_shared_expert * m.num_shared_experts
+                ffn.update(w_shared_gate=(d, dsh), w_shared_up=(d, dsh),
+                           w_shared_down=(dsh, d))
+        stack.append({"norm1": {"scale": (d,)}, "mixer": dict(attn),
+                      "norm2": {"scale": (d,)}, "ffn": ffn})
+    return {"embed": embed, "stack": stack, "final_norm": {"scale": (d,)}}
+
+
 def param_specs(cfg: ModelConfig, plan: ShardingPlan) -> dict:
     """The spec tree of ``models.model.init_model``'s params under `plan`:
-    JAX's ``abstract_model(cfg, plan)[1]`` with the stack unstacked."""
-    if plan.fsdp_axis is not None:
-        raise NotImplementedError("FSDP specs come with training across ranks "
-                                  "(ROADMAP queue 1, item 5b)")
-    return {"embed": embedding_specs(cfg, plan),
-            "stack": [layer_specs(s, cfg, plan) for s in cfg.layer_specs],
-            "final_norm": norm_specs()}
+    JAX's ``abstract_model(cfg, plan)[1]`` with the stack unstacked, FSDP
+    included."""
+    specs = {"embed": embedding_specs(cfg, plan),
+             "stack": [layer_specs(s, cfg, plan) for s in cfg.layer_specs],
+             "final_norm": norm_specs()}
+    if plan.fsdp_axis is None:
+        return specs
+    from repro_torch.models.layers.common import fsdp_spec
+
+    def extend(spec, shape):
+        if isinstance(spec, P):
+            return fsdp_spec(shape, spec, plan)
+        if isinstance(spec, dict):
+            return {k: extend(v, shape[k]) for k, v in spec.items()}
+        return [extend(a, b) for a, b in zip(spec, shape)]
+    return extend(specs, param_shapes(cfg, plan))
 
 
 def cache_specs(cfg: ModelConfig, plan: ShardingPlan, batch: int = 0,
@@ -137,6 +178,30 @@ def batch_specs(cfg: ModelConfig, kind: str, plan: ShardingPlan) -> Dict[str, P]
             specs["patches"] = P(plan.batch_axes, None, None)
         return specs
     return {"tokens": P(plan.batch_axes, None)}
+
+
+def spec_leaves(specs, like=None) -> list:
+    """The ``P`` leaves of a spec tree (a ``P`` is a tuple, but a leaf
+    here), in the leaf order of `like`: a tree of the same structure whose
+    dicts may hold their keys in another order (default: the specs' own
+    order). ``convert.tree_leaves(like)`` and this list then match."""
+    if isinstance(specs, P):
+        return [specs]
+    if isinstance(specs, dict):
+        keys = specs.keys() if like is None else like.keys()
+        return [leaf for k in keys
+                for leaf in spec_leaves(specs[k], None if like is None else like[k])]
+    return [leaf for i, v in enumerate(specs)
+            for leaf in spec_leaves(v, None if like is None else like[i])]
+
+
+def axes_of(spec: P) -> set:
+    """The mesh axes that shard some dim of a leaf."""
+    out = set()
+    for e in spec:
+        if e is not None:
+            out.update(e if isinstance(e, tuple) else (e,))
+    return out
 
 
 def shard_count(entry, mesh) -> int:

@@ -14,10 +14,16 @@ JAX's hold period-stacked leaves, so the keys differ from the JAX
 package's; there is no loader across the two formats.
 
 Restore is elastic: the shard files are put back together and each leaf
-goes to the device of its counterpart in the target tree. Numpy has no
-bfloat16 or float8, and this module uses no ``ml_dtypes``: such a leaf is
-written through a same-width integer view (bfloat16 as uint16, float8 as
-uint8, JAX's wire format) and viewed back on restore.
+goes to the device of its counterpart in the target tree. Across ranks,
+``save(..., specs=, dist=)`` gathers each leaf from the ranks' shards
+(``convert.unshard_leaf``) and rank 0 writes it, so the files hold the
+global tree whatever the mesh; ``restore(..., specs=, mesh=)`` cuts each
+leaf to the rank's block of any mesh's layout (``convert.shard_leaf``), as
+JAX's ``restore(shardings=)``. Without specs a tree is one device's.
+
+Numpy has no bfloat16 or float8, and this module uses no ``ml_dtypes``:
+such a leaf is written through a same-width integer view (bfloat16 as
+uint16, float8 as uint8, JAX's wire format) and viewed back on restore.
 
 Atomicity: a step is written to ``<dir>.tmp`` and renamed (POSIX-atomic),
 so a failure mid-save never corrupts the latest checkpoint; ``latest_step``
@@ -33,7 +39,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.convert import tree_map
+from repro_torch.convert import shard_leaf, tree_map, unshard_leaf
+from repro_torch.sharding.specs import spec_leaves
 
 # dtypes numpy cannot hold -> (the integer view torch makes, numpy's view)
 _EXOTIC = {
@@ -81,16 +88,29 @@ def flatten(tree, prefix: str = "") -> Dict[str, Any]:
     return out
 
 
-def save(tree, ckpt_dir: str, step: int, *, n_shards: int = 1) -> str:
-    """Write `tree` (params / optimizer state: tensors) for `step`."""
+def save(tree, ckpt_dir: str, step: int, *, n_shards: int = 1, specs=None,
+         dist=None) -> str:
+    """Write `tree` (params / optimizer state: tensors) for `step`, each
+    leaf split into `n_shards` files along its longest dim where that dim
+    divides. With `specs` (the tree's spec tree) and `dist`, `tree` holds
+    this rank's shards: every rank must call, each leaf is gathered to its
+    global shape, and rank 0 writes."""
     final = os.path.join(ckpt_dir, f"step_{step:06d}")
     tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp, exist_ok=True)
+    mesh = getattr(dist, "mesh", None)
+    writer = mesh is None or mesh.rank == 0
+    if writer:
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp, exist_ok=True)
+    leaf_specs = spec_leaves(specs, tree) if specs is not None else None
 
     manifest = {"step": step, "keys": {}}
-    for key, leaf in flatten(tree).items():
+    for i, (key, leaf) in enumerate(flatten(tree).items()):
+        if leaf_specs is not None:
+            leaf = unshard_leaf(leaf.detach(), leaf_specs[i], dist)
+        if not writer:
+            continue
         arr = _to_wire(leaf)
         fname = key.replace("/", ".")
         axis = int(np.argmax(arr.shape)) if arr.ndim else 0
@@ -99,13 +119,17 @@ def save(tree, ckpt_dir: str, step: int, *, n_shards: int = 1) -> str:
             "file": fname, "shape": list(arr.shape),
             "dtype": _dtype_name(leaf.dtype), "shards": k, "axis": axis,
         }
-        for i, piece in enumerate(np.split(arr, k, axis=axis) if k > 1 else [arr]):
-            np.save(os.path.join(tmp, f"{fname}.shard{i:02d}.npy"), piece)
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)
+        for j, piece in enumerate(np.split(arr, k, axis=axis) if k > 1 else [arr]):
+            np.save(os.path.join(tmp, f"{fname}.shard{j:02d}.npy"), piece)
+    if writer:
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+    if mesh is not None:
+        import torch.distributed as td
+        td.barrier()
     return final
 
 
@@ -123,10 +147,13 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(like_tree, ckpt_dir: str, step: Optional[int] = None) -> Tuple[Any, int]:
+def restore(like_tree, ckpt_dir: str, step: Optional[int] = None, *,
+            specs=None, mesh=None) -> Tuple[Any, int]:
     """Restore into the structure of `like_tree` (a tree of tensors); each
-    leaf takes the dtype and device of its counterpart there. Returns
-    (tree, step)."""
+    leaf takes the dtype and device of its counterpart there. With `specs`
+    and `mesh`, `like_tree` holds one rank's shards of that layout, and
+    each global leaf read is cut to the rank's block. Returns (tree,
+    step)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -141,17 +168,21 @@ def restore(like_tree, ckpt_dir: str, step: Optional[int] = None) -> Tuple[Any, 
     if unknown or missing:
         raise KeyError(f"checkpoint and target differ: not in the target "
                        f"{unknown[:5]}, not in the checkpoint {missing[:5]}")
+    leaf_specs = (dict(zip(flat_like, spec_leaves(specs, like_tree)))
+                  if specs is not None else {})
     loaded = {}
     for key, meta in manifest["keys"].items():
         pieces = [np.load(os.path.join(d, f"{meta['file']}.shard{i:02d}.npy"))
                   for i in range(meta["shards"])]
         arr = pieces[0] if len(pieces) == 1 else np.concatenate(pieces, axis=meta["axis"])
+        if key in leaf_specs:
+            arr = shard_leaf(arr, leaf_specs[key], mesh)
         want = flat_like[key]
         if tuple(arr.shape) != tuple(want.shape):
             raise ValueError(f"{key}: checkpoint shape {arr.shape}, target "
                              f"{tuple(want.shape)}")
-        loaded[key] = _from_wire(arr, meta["dtype"]).to(device=want.device,
-                                                         dtype=want.dtype)
+        loaded[key] = _from_wire(arr, meta["dtype"]).to(
+            device=want.device, dtype=want.dtype)
     leaves = iter(loaded[k] for k in flat_like)
     return tree_map(lambda _: next(leaves), like_tree), step
 

@@ -3,8 +3,10 @@
 Port of ``repro.training.compression``: int8 quantized all-reduce with
 error feedback (each rank keeps what quantization dropped and adds it back
 before the next quantize). The wire carries the int8 payload; the sum runs
-in int32. On one device the port's ``Dist`` makes ``pmax`` and ``psum``
-the identity; across ranks they wait for the multi-device ``Dist``.
+in int32. On one device the ``Dist``'s ``pmax`` and ``psum`` are the
+identity; across ranks they run over the axis's process group
+(``steps.reduce_grads`` and the ``Trainer`` call it on the slowest data
+axis, outside autograd).
 """
 from __future__ import annotations
 

@@ -4,9 +4,10 @@ Port of ``repro.training.optim``, not ``torch.optim.AdamW``: the update is
 computed in f32 and cast back to the parameter's dtype, the moments stay
 f32 for bf16 parameters, and the weight decay sits inside ``delta``,
 scaled by ``lr``, as in the JAX formula. The step count is int32 as JAX's;
-``t`` and the bias corrections are f32. On one device the update is local;
-gradient reduction across ranks happens before it (multi-device, not
-ported yet).
+``t`` and the bias corrections are f32. The moments carry their
+parameters' specs (``state_specs``), so across ranks the update is local
+to each rank's shards; the gradients are reduced before it
+(``launch.steps.reduce_grads``).
 
 Unlike the JAX function, ``update`` writes the new parameters and moments
 into the tensors it is given (under ``torch.no_grad``), so a step holds no
@@ -25,6 +26,13 @@ class AdamWState(NamedTuple):
     step: torch.Tensor          # int32 scalar
     m: dict
     v: dict
+
+
+def state_specs(param_specs) -> AdamWState:
+    """The optimizer state's spec tree: the step replicated, the moments
+    sharded as their parameters."""
+    from repro_torch.sharding.specs import P
+    return AdamWState(step=P(), m=param_specs, v=param_specs)
 
 
 def init_state(params) -> AdamWState:
