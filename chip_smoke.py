@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --sharded-only    # phases 14 and 15 (across ranks) alone
+    python3 chip_smoke.py --sharded-only deepseek-v3 jamba-v0.1-52b   # the named ones
 
 Phases, each printing its own lines before the last:
   1. environment: torch/CUDA versions and the card's name and power limit;
@@ -79,15 +80,21 @@ Phases, each printing its own lines before the last:
      with a card per rank, else four ranks on card 0 over gloo): bf16, the
      fp8 dispatch, and f32 at 8 layers, each held against the single-device
      port fed the same tokens, with per-rank step times, peak memory,
-     launches and collective bytes per step by kind (``CountingDist``).
+     launches and collective bytes per step by kind (``CountingDist``);
+     then the same for the sharded Mamba and MLA mixers,
+     ``sharded.deepseek-v3`` (1 of 61 layers; f32 with 32 of 256 experts;
+     with four cards also 4 layers, timed only) and
+     ``sharded.jamba-v0.1-52b`` (8 of 32 layers; f32 at 5), whose
+     references replay the run's expert choices.
  15. training across ranks (after ``sharded.olmoe-1b-7b``):
      ``train_sharded.olmoe-1b-7b`` trains olmoe-1b-7b at published widths,
      4 of 16 layers, through ``launch.train`` on the same 2x2 mesh (FSDP
      over data; EP, TP and the sequence over model): 6 steps of 8 x 512
      tokens in bf16 with the bf16 and with the fp8 dispatch, and the f32
-     gates at 2 layers (FSDP, and FSDP with ring attention) against the
-     single-device port; ``kernel.moe_gmm.grad`` times the kernel at one
-     rank's training shape (E_loc 32, T 384).
+     gates at 2 layers (FSDP, and FSDP with ring attention) and jamba's at
+     1 layer (its Mamba layer's backward) against the single-device port;
+     ``kernel.moe_gmm.grad`` times the kernel at one rank's training shape
+     (E_loc 32, T 384).
 Every path sets the launch counters to 0 just before it and reads them
 just after; ``flash_decode`` must run once per GQA layer and step (never
 on MLA, Mamba or RWKV layers), once more per decoder layer with
@@ -331,6 +338,15 @@ def check_moe_gmm(torch, ref, kmoe, gen):
               "bfloat16", True),
              ("jamba_decode", 16, 8, 4096, 14336, "bfloat16", True),
              ("jamba_prefill", 16, math.ceil(128 * 2 * 1.5 / 16), 4096, 14336,
+              "bfloat16", True),
+             # one rank of the sharded deepseek-v3 and jamba-v0.1-52b (2x2
+             # mesh): half the experts after the dispatch, T = ep * C, decode
+             # 2 x 1; prefill 2 x ceil(4 * 32 * k * 1.5 / E)
+             ("deepseek_sharded_decode", 128, 2, 7168, 2048, "bfloat16", True),
+             ("deepseek_sharded_prefill", 128, 2 * math.ceil(4 * 32 * 8 * 1.5 / 256), 7168,
+              2048, "bfloat16", True),
+             ("jamba_sharded_decode", 8, 2, 4096, 14336, "bfloat16", True),
+             ("jamba_sharded_prefill", 8, 2 * math.ceil(4 * 32 * 2 * 1.5 / 16), 4096, 14336,
               "bfloat16", True)]
     for name, e, t, d, f, dt, timed in cases:
         args = inputs(e, t, d, f, getattr(torch, dt))
@@ -471,16 +487,18 @@ def lse_library(torch, q, k, v, lengths, to, tm, tl):
     mask of each row's length. It returns (o / l, log l + m), which merges
     across shards as (o, m, l) does with m = lse and l = 1. Checked once
     against the f32 truth (to, tm, tl); returns the call to time."""
-    B, H, _ = q.shape
-    S = k.shape[2]
+    B, H, hd = q.shape
+    KH, S = k.shape[1], k.shape[2]
+    g = H // KH
     keep = torch.arange(S, device=q.device)[None, :] < lengths[:, None]
     bias = torch.zeros((B, S), dtype=q.dtype, device=q.device).masked_fill(
-        ~keep, -torch.inf)[:, None, None, :].expand(B, H, 1, S).contiguous()
+        ~keep, -torch.inf)[:, None, None, :].expand(B, KH, g, S).contiguous()
 
     def call():
+        # a KV head's g query heads as g query rows (the call has no GQA)
         out, lse = torch.ops.aten._scaled_dot_product_efficient_attention(
-            q[:, :, None], k, v, bias, True)[:2]
-        return out[:, :, 0], lse[:, :, 0]
+            q.reshape(B, KH, g, hd), k, v, bias, True)[:2]
+        return out.reshape(B, H, hd), lse[..., :g].reshape(B, H)
     o_lib, lse_lib = call()
     err_o = max_err(o_lib, to / tl[..., None])
     err_lse = max_err(lse_lib, tm + torch.log(tl))
@@ -495,18 +513,23 @@ def check_flash_decode_lse(torch, ref, kfd, gen):
     (B_loc 4) and KV shard (S_loc 256 of 512) of olmoe-1b-7b (H = KH = 16,
     hd 128). Model rank 0's shard holds every position the decode reaches
     (lengths 65-95); model rank 1's holds none (lengths 0: o = 0, l = 0,
-    m = -1e30, the reference's values). Also the split edges at B 8, and
-    f32. f32: o, m, l within 1e-4; bf16: the normalised output against the
-    f32 truth, 1.5x the plain version's error + 1e-3, and m within 1e-4."""
+    m = -1e30, the reference's values). Also the split edges at B 8, f32,
+    and jamba-v0.1-52b's shard (H 32 over KH 8). f32: o, m, l within 1e-4;
+    bf16: the normalised output against the f32 truth, 1.5x the plain
+    version's error + 1e-3, and m within 1e-4."""
     results = {}
-    # (name, B, lengths, dtype, timed)
-    cases = [("sharded_decode", 4, [65, 72, 88, 95], "bfloat16", True),
-             ("sharded_empty", 4, [0, 0, 0, 0], "bfloat16", True),
-             ("sharded_decode_f32", 4, [65, 72, 88, 95], "float32", False),
-             ("edges", 8, [0, 1, 63, 64, 65, 128, 255, 256], "bfloat16", False),
-             ("edges_f32", 8, [0, 1, 63, 64, 65, 128, 255, 256], "float32", False)]
-    H, KH, hd, S = 16, 16, 128, 256
-    for name, B, lens, dt, timed in cases:
+    # (name, B, H, KH, lengths, dtype, timed); jamba-v0.1-52b's attention
+    # layer on its shard: B_loc 4, all 32 query heads (gathered over tp)
+    # over its 8 KV heads, 16 new tokens after a prompt of 64
+    cases = [("sharded_decode", 4, 16, 16, [65, 72, 88, 95], "bfloat16", True),
+             ("sharded_empty", 4, 16, 16, [0, 0, 0, 0], "bfloat16", True),
+             ("sharded_decode_f32", 4, 16, 16, [65, 72, 88, 95], "float32", False),
+             ("edges", 8, 16, 16, [0, 1, 63, 64, 65, 128, 255, 256], "bfloat16", False),
+             ("edges_f32", 8, 16, 16, [0, 1, 63, 64, 65, 128, 255, 256], "float32", False),
+             ("jamba_sharded_g4", 4, 32, 8, [65, 70, 75, 79], "bfloat16", True),
+             ("jamba_sharded_g4_f32", 4, 32, 8, [65, 70, 75, 79], "float32", False)]
+    hd, S = 128, 256
+    for name, B, H, KH, lens, dt, timed in cases:
         tdt = getattr(torch, dt)
         q = torch.randn((B, H, hd), generator=gen, device="cuda").to(tdt)
         k = torch.randn((B, KH, S, hd), generator=gen, device="cuda").to(tdt)
@@ -1229,8 +1252,45 @@ def flip_gate(torch, truth, tokens, vocab, e1, near=0.05):
     return [(int(t), int(b), float(gap[t, b])) for t, b in bad.nonzero().tolist()], read
 
 
+def recording_route(route, chosen: list):
+    """``moe.route`` that also appends each call's expert choices (the
+    top-k indices [T, k]) to `chosen`."""
+    def fn(logits, topk, n_real):
+        out = route(logits, topk, n_real)
+        chosen.append(out[1].detach())
+        return out
+    return fn
+
+
+def replaying_route(torch, route, chosen, counts: list, replay=True):
+    """``moe.route`` that takes call i's experts from chosen[i] (one [T, k]
+    index tensor per call, in call order), the gates renormalised from the
+    caller's own router probabilities; it appends to `counts` the tokens of
+    each call whose own top-k differs. With `replay` False it only counts."""
+    def fn(logits, topk, n_real):
+        gates, own, probs = route(logits, topk, n_real)
+        idx = chosen[len(counts)].to(own.device)
+        counts.append(int((own.sort(-1).values != idx.sort(-1).values).any(-1).sum()))
+        if not replay:
+            return gates, own, probs
+        picked = probs.gather(-1, idx)
+        return picked / torch.clamp(picked.sum(-1, keepdim=True), min=1e-9), idx, probs
+    return fn
+
+
+def to_f32_in_place(tree):
+    """Every floating leaf of a tree of dicts and lists made float32, leaf
+    by leaf in place: the tree never holds both copies of more than one
+    leaf (one deepseek-v3 layer is 23 GB in bf16, 46 GB in f32)."""
+    for k in list(tree.keys()) if isinstance(tree, dict) else range(len(tree)):
+        if isinstance(tree[k], (dict, list)):
+            to_f32_in_place(tree[k])
+        elif tree[k].is_floating_point():
+            tree[k] = tree[k].float()
+
+
 def sharded_reference(torch, M, kvcache, cfg, job, tokens, groups, device="cuda",
-                      fp8=False, truth=False):
+                      fp8=False, truth=False, routing=None, routed_otherwise=None):
     """The single-device port on the same weights (the global draw from
     SEED), fed the sharded run's tokens (teacher forcing), with the MoE
     capacity groups of the sharded run: (batch shards, sequence shards) in
@@ -1239,16 +1299,20 @@ def sharded_reference(torch, M, kvcache, cfg, job, tokens, groups, device="cuda"
     trip of the fp8 dispatch (a scale per row, as each slot travels), so
     that the reference computes what the sharded run with ``a2a_fp8``
     computes. With `truth`, the same weights (drawn in the job's dtype)
-    run in f32: the arithmetic without rounding to the job's dtype.
-    Returns the f32 logits [new_tokens, B, V_pad]: the prefill's last
-    position, then each decode step's."""
+    run in f32: the arithmetic without rounding to the job's dtype. With
+    `routing` (the sharded run's expert choices, one [T, k] tensor per MoE
+    call in the single device's token order), every MoE layer takes those
+    experts (``replaying_route``), and `routed_otherwise` receives the
+    number of tokens per call whose own choice differs. Returns the f32
+    logits [new_tokens, B, V_pad]: the prefill's last position, then each
+    decode step's."""
     from repro_torch.kernels import ops
+    from repro_torch.models.layers import moe as moe_mod
     from repro_torch.models.layers.common import fp8_dequantize, fp8_quantize
-    gmm = ops.moe_gmm
+    gmm, route = ops.moe_gmm, moe_mod.route
     params = M.init_model(cfg, None, seed=job["seed"], device=device)
     if truth:
-        from repro_torch.convert import tree_map
-        params = tree_map(lambda t: t.float() if t.is_floating_point() else t, params)
+        to_f32_in_place(params)
         cfg = cfg.replace(dtype="float32")
     P, S = job["prompt_len"], job["max_seq"]
     prompts = torch.as_tensor(tokens["prompts"], device=device)
@@ -1256,6 +1320,10 @@ def sharded_reference(torch, M, kvcache, cfg, job, tokens, groups, device="cuda"
     try:
         if fp8:
             ops.moe_gmm = lambda x, *w: gmm(fp8_dequantize(*fp8_quantize(x), x.dtype), *w)
+        if routing is not None:
+            moe_mod.route = replaying_route(torch, route, routing,
+                                            [] if routed_otherwise is None
+                                            else routed_otherwise)
         with torch.no_grad():
             lg, caches = M.prefill_logits(params, {"tokens": prompts}, cfg,
                                           capacity_groups=groups)
@@ -1266,78 +1334,179 @@ def sharded_reference(torch, M, kvcache, cfg, job, tokens, groups, device="cuda"
                                              cfg, capacity_groups=groups[0])
                 logits.append(lg[:, 0])
     finally:
-        ops.moe_gmm = gmm
+        ops.moe_gmm, moe_mod.route = gmm, route
     del params, caches
     return torch.stack(logits)
 
 
-def sharded_phase(torch, M, kvcache, smi, device="cuda", **cut):
-    """olmoe-1b-7b at published widths (16 layers, random weights from SEED
-    drawn in the global layout, each rank keeping its shards) through
-    ``launch.serve`` on a 2x2 (data x model) mesh: 8 prompts of 64 tokens,
-    max_seq 512, 32 new tokens, in bf16 with the bf16 and with the fp8
-    dispatch, and in f32 (TF32 off; 8 layers, 16 new tokens). nccl with a card per rank, else four
-    ranks on card 0 over gloo (NCCL refuses two ranks on one card).
+# each sharded serving phase's depth, new tokens and f32 cut: four f32
+# ranks of all 16 olmoe layers take 59 GB of the card; a full-width f32
+# deepseek-v3 layer is 46 GB, so its f32 job keeps 32 of 256 experts (the
+# parity_f32 phase's cut); jamba's f32 job keeps 5 layers, its attention
+# layer among them. deepseek-v3's timed job (nccl, four cards) is 4 layers:
+# ~49 GB a rank, where 5 would be ~61 GB before any transient. `replay`:
+# the references take the sharded run's expert choices. Top-k is
+# discontinuous: where bf16 rounding sends a token of jamba's first MoE
+# layer to another expert, the seven layers after it and every later step
+# move by O(1), in the single device as in the sharded run, at other
+# positions (on an H100 80GB HBM3 at 700 W without the replay: the bf16
+# single device up to 5.4 from the f32 truth, and 38 of 128 greedy tokens
+# apart from the sharded run)
+SHARDED_ARCHS = {
+    "olmoe-1b-7b": dict(layers=None, new_tokens=32, f32=dict(layers=8)),
+    "deepseek-v3": dict(layers=1, new_tokens=16, f32=dict(layers=1, experts=32),
+                        timed_layers=4, replay=True),
+    "jamba-v0.1-52b": dict(layers=8, new_tokens=16, f32=dict(layers=5), replay=True),
+}
 
-    Each run is held against the single-device port on the same weights,
-    fed the run's own tokens, with the sharded run's MoE capacity groups
-    (the fp8 run: with the e4m3 round trip of its dispatch). Every greedy
-    token must be the argmax of the run's own gathered logits. f32: the
-    logits within 1e-3 of the single device, flips only where its top-2
-    margin is under 0.05. bf16 and fp8: held, with the single device, to
-    the f32 truth (the same weights in f32), position by position
-    (``logit_gate``, ``flip_gate``): the bf16 single device alone is up to
-    ~0.4 from the truth at full width and flips greedy tokens at margins
-    well past 0.05, as an expert choice or a capacity drop turns on one
-    rounding. The fp8 run's distance from the bf16 reference is printed.
-    Every rank must launch ``moe_gmm`` and the (o, m, l) ``flash_decode``
-    on every layer of every decode step. `device` and `cut` (job keys) are
-    for a rehearsal of this phase on the CPU at a reduced size."""
+
+def sharded_jobs(arch, timed=False, **cut):
+    """The jobs of ``sharded_phase`` for `arch`: bf16, the fp8 dispatch and
+    f32 (16 new tokens), each held to the single device; with `timed`, for
+    an arch with ``timed_layers``, one more bf16 job that deep, timed and
+    not held to a single device (it would not fit one card)."""
+    import dataclasses
+
+    from repro_torch.launch.serve import job_config
+    spec = SHARDED_ARCHS[arch]
+    base = dict(arch=arch, batch=8, prompt_len=64, max_seq=512,
+                new_tokens=spec["new_tokens"], seed=SEED, logits=True)
+    if spec["layers"]:
+        base["layers"] = spec["layers"]
+    base.update(cut)
+    f32 = dict(base, new_tokens=16, layers=cut.get("layers", spec["f32"]["layers"]),
+               config=dict(base.get("config", {}), dtype="float32"))
+    experts = spec["f32"].get("experts")
+    cfg = job_config(f32)
+    if experts and cfg.moe.num_experts > experts:
+        f32["config"]["moe"] = dataclasses.replace(cfg.moe, num_experts=experts)
+    jobs = {"bf16": base, "fp8": dict(base, a2a_fp8=True), "f32": f32}
+    if timed and "timed_layers" in spec:
+        jobs[f"bf16_{spec['timed_layers']}_layers"] = dict(
+            base, layers=spec["timed_layers"], reference=False)
+    return jobs
+
+
+def predicted_a2a_bytes(cfg, job, mesh=SHARDED_MESH):
+    """The MoE all-to-all bytes a rank sends per decode step: E * C * D *
+    (bytes per element) * (ep - 1) / ep per MoE layer, E the experts padded
+    to the EP group, C the capacity of one rank's B / dp tokens; the fp8
+    dispatch sends 1-byte values and a f32 scale per slot."""
+    from repro_torch.models.layers.moe import capacity
+    dp = ep = mesh[0]
+    n_moe = sum(s.ffn == "moe" for s in cfg.layer_specs)
+    m, d = cfg.moe, cfg.d_model
+    e = m.padded_num_experts(ep)
+    c = capacity(job["batch"] // dp, m.experts_per_token, e, m.capacity_factor)
+    el = 4 if cfg.dtype == "float32" else 2
+    share = (ep - 1) / ep
+    combine = n_moe * e * c * d * el * share
+    dispatch = n_moe * (e * c * d + 4 * e * c) * share if job.get("a2a_fp8") else combine
+    return {"dispatch": dispatch, "combine": combine}
+
+
+def sharded_serve_rank(mesh, dist, dev, jobs):
+    """Every rank of ``sharded_phase``: ``launch.serve``'s job for each of
+    `jobs`, each MoE layer's expert choices recorded (``recording_route``)
+    and gathered to rank 0 (``res["routing"]``) in the single device's
+    token order: in prefill each rank's tokens are one capacity group, in
+    the ranks' row-major order (capacity groups (dp, sp)); in decode a
+    data rank's rows."""
+    from repro_torch.launch.serve import job_config, serve_job
+    from repro_torch.models.layers import moe as moe_mod
+    route, out = moe_mod.route, []
+    for job in jobs:
+        chosen = []
+        moe_mod.route = recording_route(route, chosen)
+        try:
+            res = serve_job(mesh, dist, dev, job)
+        finally:
+            moe_mod.route = route
+        n_moe = sum(s.ffn == "moe" for s in job_config(job).layer_specs)
+        routing = [dist.all_gather(c, tuple(mesh.axes), dim=0) for c in chosen[:n_moe]] \
+            + [dist.all_gather(c, "data", dim=0) for c in chosen[n_moe:]]
+        if mesh.rank == 0:
+            res["routing"] = [c.cpu().numpy() for c in routing]
+        out.append(res)
+    return out
+
+
+def sharded_phase(torch, M, kvcache, smi, device="cuda", arch="olmoe-1b-7b",
+                  timed=False, **cut):
+    """`arch` at published widths (random weights from SEED drawn in the
+    global layout, the ranks one after another, each keeping its shards)
+    through ``launch.serve`` on a 2x2 (data x model) mesh: 8 prompts of 64
+    tokens, max_seq 512, in bf16 with the bf16 and with the fp8 dispatch,
+    and in f32 (TF32 off), each cut as ``SHARDED_ARCHS`` says; with
+    `timed`, one more bf16 job deeper (``sharded_jobs``). nccl with a card
+    per rank, else four ranks on card 0 over gloo (NCCL refuses two ranks
+    on one card).
+
+    Each held job is held against the single-device port on the same
+    weights, fed the run's own tokens, with the sharded run's MoE capacity
+    groups (the fp8 run: with the e4m3 round trip of its dispatch) and,
+    for an arch with ``replay``, its expert choices, after the ranks have
+    freed the card. f32: the logits within 1e-3 of the
+    single device, flips only where its top-2 margin is under 0.05. bf16
+    and fp8: held, with the single device, to the f32 truth (the same
+    weights in f32), position by position (``logit_gate``, ``flip_gate``):
+    the bf16 single device alone is up to ~0.4 from the truth at full width
+    and flips greedy tokens at margins well past 0.05, as an expert choice
+    or a capacity drop turns on one rounding. The fp8 run's distance from
+    the bf16 reference is printed. Every job: each greedy token is the
+    argmax of the run's own gathered logits, the logits are finite, the
+    MoE all-to-all bytes a rank sends per step equal the prediction
+    (``predicted_a2a_bytes``), and every rank launches ``moe_gmm`` on every
+    MoE layer and the (o, m, l) ``flash_decode`` on every GQA layer of
+    every decode step (MLA and Mamba layers have no kernel). `device` and
+    `cut` (job keys) are for a rehearsal of this phase on the CPU at a
+    reduced size."""
     from repro_torch.launch import serve
     from repro_torch.launch.serve import job_config
+    tag = "sharded" if arch == "olmoe-1b-7b" else f"sharded.{arch}"
     n_cards = torch.cuda.device_count()
     n_ranks = math.prod(SHARDED_MESH)
     transport = "nccl" if device == "cuda" and n_cards >= n_ranks else "gloo"
-    log("sharded.transport", transport=transport, cards=n_cards, ranks=n_ranks,
+    log(f"{tag}.transport", transport=transport, cards=n_cards, ranks=n_ranks,
         why=("one rank per card" if transport == "nccl" else
              "four ranks share card 0: NCCL refuses two ranks on one card, so "
              "collectives go through host memory over gloo; their times say "
              "nothing about NVLink"), nvidia_smi=smi)
     if device == "cuda":
-        log("sharded.card_memory", parent_allocated_gib=torch.cuda.memory_allocated() / 2 ** 30,
+        log(f"{tag}.card_memory",
+            parent_allocated_gib=torch.cuda.memory_allocated() / 2 ** 30,
             parent_reserved_gib=torch.cuda.memory_reserved() / 2 ** 30,
             used_mib=subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
                                      "--format=csv,noheader,nounits"], capture_output=True,
                                     text=True).stdout.strip())
-    base = dict(arch="olmoe-1b-7b", batch=8, prompt_len=64, max_seq=512,
-                new_tokens=32, seed=SEED, logits=True, **cut)
-    # f32 at 8 of 16 layers and 16 new tokens: 6.8 GiB of weights a rank;
-    # all 16 would double that on each of four ranks sharing one card
-    f32 = dict(base, new_tokens=16, layers=8,
-               config=dict(base.get("config", {}), dtype="float32"))
-    if "layers" in cut:
-        f32["layers"] = cut["layers"]
-    jobs = {"bf16": base, "fp8": dict(base, a2a_fp8=True), "f32": f32}
+    jobs = sharded_jobs(arch, timed=timed, **cut)
     t0 = time.perf_counter()
-    ranks = serve.serve(list(jobs.values()), mesh_shape=SHARDED_MESH,
-                        transport=transport, device=device,
+    ranks = serve.spawn(sharded_serve_rank, (list(jobs.values()),),
+                        mesh_shape=SHARDED_MESH, transport=transport, device=device,
                         wrap_dist=count_collectives, timeout=900)
-    out = {"transport": transport, "nvidia_smi": smi,
-           "serve_wall_s": time.perf_counter() - t0, "jobs": {}}
+    replay = SHARDED_ARCHS[arch].get("replay", False)
+    out = {"arch": arch, "transport": transport, "nvidia_smi": smi,
+           "serve_wall_s": time.perf_counter() - t0, "jobs": {},
+           "predicted_by_job": {}}
     failures = []
     for j, (name, job) in enumerate(jobs.items()):
         cfg = job_config(job)
-        layers, steps_n = cfg.num_layers, job["new_tokens"] - 1
+        steps_n = job["new_tokens"] - 1
+        n_moe = sum(s.ffn == "moe" for s in cfg.layer_specs)
+        n_gqa = sum(s.mixer in ("attn", "attn_local") for s in cfg.layer_specs) \
+            if cfg.attn_kind == "gqa" else 0
+        pred = predicted_a2a_bytes(cfg, job)
+        out["predicted_by_job"][name] = pred
         per_rank = []
         for r in range(n_ranks):
             res = ranks[r][j]
             dec, pre = res["launches"]["decode"], res["launches"]["prefill"]
-            want = {"moe_gmm": layers * steps_n, "flash_decode_lse": layers * steps_n,
+            want = {"moe_gmm": n_moe * steps_n, "flash_decode_lse": n_gqa * steps_n,
                     "flash_decode": 0}
-            if device == "cuda" and (dec != want or pre["moe_gmm"] != layers
+            if device == "cuda" and (dec != want or pre["moe_gmm"] != n_moe
                                      or pre["flash_decode_lse"]):
                 failures.append(f"{name} rank {r}: launches {dec} in decode, {pre} "
-                                f"in prefill; want {want} and {layers} moe_gmm in prefill")
+                                f"in prefill; want {want} and {n_moe} moe_gmm in prefill")
             snap = res["snapshots"]["decode"] or {}
             row = {"rank": r, "coords": res["coords"], "transport": transport,
                    "prefill_ms": 1e3 * res["prefill_s"],
@@ -1357,27 +1526,47 @@ def sharded_phase(torch, M, kvcache, smi, device="cuda", **cut):
                        "p2p", {}).get("bytes", 0),
                    "relayout_bytes": sum(v["bytes"] for v in
                                          (res["snapshots"]["relayout"] or {}).values())}
+            sent = row["collective_bytes_per_step"]
+            if any(not math.isclose(sent.get(k, 0), v, rel_tol=1e-9) for k, v in pred.items()):
+                failures.append(f"{name} rank {r}: all-to-all bytes a step "
+                                f"{ {k: sent.get(k) for k in pred} }, predicted {pred}")
             per_rank.append(row)
-            log(f"sharded.{name}.rank", **{k: v for k, v in row.items()
-                                           if k != "decode_ms_per_step"}, nvidia_smi=smi)
+            log(f"{tag}.{name}.rank", **{k: v for k, v in row.items()
+                                         if k != "decode_ms_per_step"}, nvidia_smi=smi)
         r0 = ranks[0][j]
         v = cfg.vocab_size
         fp8 = bool(job.get("a2a_fp8"))
-        ref_logits = sharded_reference(torch, M, kvcache, cfg, job, r0, (2, 2), device,
-                                       fp8=fp8)
         sharded = torch.as_tensor(r0["logits"], device=device)
         tokens = torch.as_tensor(r0["tokens"], device=device).T        # [T, B]
-        diff = (sharded[..., :v] - ref_logits[..., :v]).abs().max().item()
-        res = {"ranks": per_rank, "layers": layers, "dtype": cfg.dtype,
-               "max_abs_logit_diff_vs_single_device": diff,
-               "flips_vs_single_device": int((ref_logits[..., :v].argmax(-1)
-                                              != tokens).sum()),
-               "tokens_row0": r0["tokens"][0].tolist()}
+        res = {"ranks": per_rank, **cut_of(cfg, job_config(dict(arch=arch))),
+               "dtype": cfg.dtype, "a2a_fp8": fp8, "tokens_row0": r0["tokens"][0].tolist(),
+               "predicted_a2a_bytes_per_step": pred}
+        if not bool(torch.isfinite(sharded[..., :v]).all()):
+            failures.append(f"{name}: logits not finite")
         # every token is the argmax of the run's own gathered logits (the
         # vocab-sharded greedy sampling, lowest index on a tie)
         if not bool((sharded[..., :v].argmax(-1) == tokens).all()):
             failures.append(f"{name}: a greedy token is not the argmax of the run's "
                             "own logits")
+        if job.get("reference") is False:
+            res["reference"] = "none: timed only (the single device would not fit one card)"
+            out["jobs"][name] = res
+            log(f"{tag}.{name}", **{k: v for k, v in res.items() if k != "ranks"},
+                transport=transport, nvidia_smi=smi)
+            continue
+        routing = [torch.as_tensor(c, device=device) for c in r0["routing"]] \
+            if replay else None
+        otherwise = []
+        ref_logits = sharded_reference(torch, M, kvcache, cfg, job, r0, (2, 2), device,
+                                       fp8=fp8, routing=routing, routed_otherwise=otherwise)
+        if replay:
+            res["references_replay_expert_choices"] = True
+            res["tokens_the_single_device_routes_otherwise"] = {
+                "total": sum(otherwise), "calls": len(otherwise), "max_per_call": max(otherwise)}
+        diff = (sharded[..., :v] - ref_logits[..., :v]).abs().max().item()
+        res.update(max_abs_logit_diff_vs_single_device=diff,
+                   flips_vs_single_device=int((ref_logits[..., :v].argmax(-1)
+                                               != tokens).sum()))
         if name == "f32":
             res["rule"] = "logits within 1e-3; flips only where the top-2 margin < 0.05"
             res["flips_not_allowed"] = near_tie_flips(torch, ref_logits, tokens, v)
@@ -1385,7 +1574,7 @@ def sharded_phase(torch, M, kvcache, smi, device="cuda", **cut):
                 failures.append(f"f32 logits differ from the single device by {diff} > 1e-3")
         else:
             truth = sharded_reference(torch, M, kvcache, cfg, job, r0, (2, 2), device,
-                                      fp8=fp8, truth=True)
+                                      fp8=fp8, truth=True, routing=routing)
             over, res["logits_vs_truth"], e1 = logit_gate(torch, truth, sharded,
                                                           ref_logits, v)
             res["flips_not_allowed"], res["tokens_vs_truth"] = flip_gate(
@@ -1404,30 +1593,25 @@ def sharded_phase(torch, M, kvcache, smi, device="cuda", **cut):
         if fp8:
             res["max_abs_logit_diff_vs_bf16_reference"] = (
                 sharded[..., :v] - sharded_reference(torch, M, kvcache, cfg, job, r0, (2, 2),
-                                                     device)[..., :v]).abs().max().item()
+                                                     device, routing=routing)[..., :v]
+            ).abs().max().item()
         if res["flips_not_allowed"]:
             failures.append(f"{name}: tokens flip where no rule allows it "
                             f"(step, row, gap): {res['flips_not_allowed']}")
         out["jobs"][name] = res
-        log(f"sharded.{name}", **{k: v for k, v in res.items() if k != "ranks"},
+        log(f"{tag}.{name}", **{k: v for k, v in res.items() if k != "ranks"},
             transport=transport, nvidia_smi=smi)
         del ref_logits, sharded
         if device == "cuda":
             torch.cuda.empty_cache()
-    # the predicted MoE bytes per decode step, to hold the counts against:
-    # E * C * D * (bytes per element) * (ep - 1) / ep per MoE layer, C the
-    # capacity of one rank's 4 tokens; fp8 sends 1-byte values and a f32
-    # scale per slot
-    cfg = job_config(base)
-    n_moe = sum(s.ffn == "moe" for s in cfg.layer_specs)
-    e, d = cfg.moe.num_experts, cfg.d_model
-    c = math.ceil(8 // 2 * cfg.moe.experts_per_token * cfg.moe.capacity_factor / e)
-    out["predicted_bytes_per_step"] = {
-        "dispatch_bf16": n_moe * e * c * d * 2 / 2, "combine": n_moe * e * c * d * 2 / 2,
-        "dispatch_fp8": n_moe * (e * c * d + 4 * e * c) / 2}
-    log("sharded.predicted", **out["predicted_bytes_per_step"])
+    # the base jobs' predictions under their earlier names
+    pb, pf = out["predicted_by_job"]["bf16"], out["predicted_by_job"]["fp8"]
+    out["predicted_bytes_per_step"] = {"dispatch_bf16": pb["dispatch"],
+                                       "combine": pb["combine"],
+                                       "dispatch_fp8": pf["dispatch"]}
+    log(f"{tag}.predicted", **out["predicted_by_job"])
     if failures:
-        raise AssertionError("sharded.olmoe-1b-7b: " + "; ".join(failures))
+        raise AssertionError(f"sharded.{arch}: " + "; ".join(failures))
     return out
 
 
@@ -1487,12 +1671,7 @@ def f32_train_gate(mesh, dist, dev, gate):
                                     seed=gate["seed"])).batch(0)
     local = torch.from_numpy(shard_leaf(tokens, step.in_specs["tokens"], mesh)).to(dev)
     route, chosen = moe_mod.route, []
-
-    def record(logits, topk, n_real):
-        out = route(logits, topk, n_real)
-        chosen.append(out[1].detach())
-        return out
-    moe_mod.route = record
+    moe_mod.route = recording_route(route, chosen)
     try:
         loss, grads = step.loss_and_grads(params, {"tokens": local})
     finally:
@@ -1516,18 +1695,9 @@ def f32_train_gate(mesh, dist, dev, gate):
 
     def reference(replay):
         flips = []
-
-        def replayed(logits, topk, n_real):
-            gates, own, probs = route(logits, topk, n_real)
-            idx = chosen[len(flips)]
-            flips.append(int((own.sort(-1).values != idx.sort(-1).values).any(-1).sum()))
-            if not replay:
-                return gates, own, probs
-            picked = probs.gather(-1, idx)
-            return picked / torch.clamp(picked.sum(-1, keepdim=True), min=1e-9), idx, probs
         single = M.init_model(cfg, None, seed=gate["seed"], device=dev)
         leaves = [p.requires_grad_() for p in flatten(single).values()]
-        moe_mod.route = replayed
+        moe_mod.route = replaying_route(torch, route, chosen, flips, replay)
         try:
             l_ref = M.train_loss(single, {"tokens": torch.from_numpy(tokens).to(dev)}, cfg,
                                  remat=False, capacity_groups=groups)
@@ -1593,8 +1763,11 @@ def train_sharded_phase(torch, smi, device="cuda", **cut):
     ``test_a2a_fp8_close_to_baseline`` bound); f32 at 2 layers, TF32 off,
     FSDP on, and again with ``ring_attn``: the loss within 1e-4 relative
     of the single-device port's, every gathered gradient within 1e-3 of
-    its leaf's largest magnitude. `device` and `cut` (job keys) are for a
-    rehearsal on the CPU at a reduced size."""
+    its leaf's largest magnitude; the same for jamba-v0.1-52b at 1 layer (a
+    Mamba layer, d_inner and the sequence over model, and a dense FFN), 8
+    x 128 tokens, whose Mamba gradients need ``Dist.psum_for_shards``.
+    `device` and `cut` (job keys) are for a rehearsal on the CPU at a
+    reduced size."""
     from repro_torch.launch import train as launch_train
     from repro_torch.launch.serve import job_config
     n_cards = torch.cuda.device_count() if device == "cuda" else 0
@@ -1606,8 +1779,15 @@ def train_sharded_phase(torch, smi, device="cuda", **cut):
     gate = dict(base, layers=2, config=dict(base.get("config", {}), dtype="float32"))
     if "layers" in cut:
         gate["layers"] = cut["layers"]
+    # jamba at 1 layer (a Mamba layer and a dense FFN, full width) holds the
+    # sharded Mamba's backward: 8 x 128 tokens, one scan chunk (the
+    # single-device reference keeps its doubling scan's activations)
+    jamba = dict(arch="jamba-v0.1-52b", batch=8, seq=128, seed=SEED, layers=1,
+                 config=dict(cut.get("config", {}), dtype="float32"))
+    jamba.update({k: cut[k] for k in ("reduced", "batch", "seq") if k in cut})
     jobs = {"bf16": base, "fp8": dict(base, a2a_fp8=True)}
-    gates = {"f32_fsdp": gate, "f32_fsdp_ring": dict(gate, ring_attn=True)}
+    gates = {"f32_fsdp": gate, "f32_fsdp_ring": dict(gate, ring_attn=True),
+             "f32_fsdp_jamba": jamba}
     log("train_sharded.transport", transport=transport, cards=n_cards, ranks=n_ranks,
         nvidia_smi=smi)
     t0 = time.perf_counter()
@@ -2063,19 +2243,35 @@ def main() -> int:
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
-    if sys.argv[1:] == ["--sharded-only"]:
-        # the sharded phase and its kernel alone: with four or more cards
-        # its ranks take nccl, one rank a card
+    if sys.argv[1:2] == ["--sharded-only"]:
+        # the phases across ranks and their kernel alone, or the sharded
+        # serving archs and "train_sharded" named after the flag: with four
+        # or more cards the ranks take nccl, one rank a card
+        only = sys.argv[2:] or [*SHARDED_ARCHS, "train_sharded"]
+        unknown = set(only) - set(SHARDED_ARCHS) - {"train_sharded"}
+        if unknown:
+            print(f"chip_smoke: unknown phases {sorted(unknown)}", file=sys.stderr)
+            return 2
         gen = torch.Generator(device="cuda")
         gen.manual_seed(SEED)
         phase("kernel.flash_decode_lse", check_flash_decode_lse, torch, ref, kfd, gen)
-        sharded = phase("sharded.olmoe-1b-7b", sharded_phase, torch, M, kvcache, smi)
-        tsh = phase("train_sharded.olmoe-1b-7b", train_sharded_phase, torch, smi)
-        print(json.dumps({"sharded": {j: {k: v for k, v in r.items() if k != "ranks"}
-                                      for j, r in sharded["jobs"].items()},
-                          "train_sharded": {"gates": tsh["gates"],
-                                            "fp8_last_loss_rel_to_bf16":
-                                            tsh["fp8_last_loss_rel_to_bf16"]}}))
+        sharded = {a: phase(f"sharded.{a}", sharded_phase, torch, M, kvcache, smi, arch=a,
+                            timed=a == "deepseek-v3" and torch.cuda.device_count() >= 4)
+                   for a in SHARDED_ARCHS if a in only}
+        tsh = (phase("train_sharded.olmoe-1b-7b", train_sharded_phase, torch, smi)
+               if "train_sharded" in only else None)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_sharded.json").write_text(json.dumps(
+            {"nvidia_smi": smi, "sharded": sharded, "train_sharded": tsh,
+             "phase_wall_s": walls}, indent=1, default=str))
+        print(json.dumps({"sharded": {a: {j: {k: v for k, v in r.items() if k != "ranks"}
+                                          for j, r in res["jobs"].items()}
+                                      for a, res in sharded.items()},
+                          "train_sharded": tsh and {"gates": tsh["gates"],
+                                                    "fp8_last_loss_rel_to_bf16":
+                                                    tsh["fp8_last_loss_rel_to_bf16"]}},
+                         default=str))
         print(json.dumps({"ok": True, "device": device}))
         return 0
     gen = torch.Generator(device="cuda")
@@ -2108,10 +2304,15 @@ def main() -> int:
     del params
     free()
 
-    # sharded serving: full olmoe-1b-7b on a 2x2 mesh through launch/serve
-    sharded = phase("sharded.olmoe-1b-7b", sharded_phase, torch, M, kvcache, smi)
+    # sharded serving on a 2x2 mesh through launch/serve: full olmoe-1b-7b;
+    # the paper's deepseek-v3 at 1 of 61 layers (experts over data in
+    # decode); jamba-v0.1-52b at one period, 8 of 32 layers (d_inner over
+    # model)
+    sharded = {a: phase(f"sharded.{a}", sharded_phase, torch, M, kvcache, smi, arch=a)
+               for a in SHARDED_ARCHS}
     free()
-    # training across ranks: olmoe-1b-7b at 4 of 16 layers through launch/train
+    # training across ranks: olmoe-1b-7b at 4 of 16 layers through
+    # launch/train, and the f32 gates (jamba's among them)
     train_sharded = phase("train_sharded.olmoe-1b-7b", train_sharded_phase, torch, smi)
     free()
 
@@ -2272,9 +2473,10 @@ def main() -> int:
                         f"dbo.{ds} (first step)": dbo_ds["launches_first_step"],
                         f"prefill_patches.{vl} (decode)": patches["launches"],
                         "train.olmoe-1b-7b": train["launches"],
-                        **{f"sharded.olmoe-1b-7b.{j} (rank {r['rank']} decode)":
+                        **{f"sharded.{a}.{j} (rank {r['rank']} decode)":
                            r["launches"]["decode"]
-                           for j, job in sharded["jobs"].items() for r in job["ranks"]},
+                           for a, res in sharded.items()
+                           for j, job in res["jobs"].items() for r in job["ranks"]},
                         **{f"train_sharded.olmoe-1b-7b.{j} (rank {r['rank']}, 6 steps)":
                            {"moe_gmm": sum(r["moe_gmm_launches_per_step"]),
                             "flash_decode": 0, "flash_decode_lse": 0}
@@ -2315,8 +2517,8 @@ def main() -> int:
                     "source": "src/repro_torch/csrc/flash_decode.cu",
                     "replaces": "src/repro/kernels/flash_decode.py:61",
                     "variant": "split_s, (o, m, l) combine",
-                    "launches": sharded["jobs"]["bf16"]["ranks"][0]["launches"]["decode"][
-                        "flash_decode_lse"],
+                    "launches": sharded["olmoe-1b-7b"]["jobs"]["bf16"]["ranks"][0][
+                        "launches"]["decode"]["flash_decode_lse"],
                     "launches_by_path": {p: n.get("flash_decode_lse", 0)
                                          for p, n in launches_by_path.items()},
                     "max_abs_err": lse["max_abs_err"], "ms": lse["ms"],

@@ -15,9 +15,11 @@ rank's shards, in place. JAX's step under ``check_vma=False`` transposes
 the loss's psums to psums, so its gradients are not its own single
 device's (ROADMAP queue 3); the port's are.
 
-``init_params`` draws the global weights leaf by leaf from one seed and
-keeps this rank's shards, so every rank (and a single device given the
-same seed) holds the same model and no rank ever holds all of it.
+``init_params`` draws the global weights piece by piece from one seed,
+the ranks one after another, and keeps this rank's shards, so every rank
+(and a single device given the same seed) holds the same model, no rank
+ever holds all of it, and ranks sharing a card hold one global piece at a
+time between them.
 ``reshard`` moves a rank's shards from one spec tree to another (the
 prefill plan puts the experts on ``model``, the decode plan on ``data``)
 with point-to-point copies between the ranks that hold and need each
@@ -31,7 +33,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeCell
-from repro_torch.convert import shard_tree, tree_leaves
+from repro_torch.convert import shard_leaf, tree_leaves
 from repro_torch.models import model as M
 from repro_torch.models.layers import common
 from repro_torch.sharding.dist import Dist, NullDist
@@ -227,16 +229,43 @@ def build_cell(cfg: ModelConfig, shape: ShapeCell, mesh, *, fsdp: bool = True,
 def init_params(cfg: ModelConfig, plan: ShardingPlan, mesh, *, seed: int = 0,
                 device="cuda"):
     """This rank's shards of ``M.init_model(cfg, plan, seed=seed)``: each
-    piece is drawn at its global shape and cut at once."""
+    piece (the embedding, a layer, a norm) is drawn at its global shape and
+    cut at once. Under ``torch.distributed`` the ranks draw one after
+    another, a barrier between turns, and a rank on a card hands the
+    memory of its draw back before the next turn: ranks sharing a card
+    never hold a global piece each at once (one deepseek-v3 layer is
+    23 GB at its global shape)."""
+    import torch.distributed as td
     specs = param_specs(cfg, plan)
+
+    def cut(tree, spec):
+        """`tree`'s shards; each global leaf is dropped from `tree` as soon
+        as its block is copied out."""
+        if isinstance(spec, P):
+            return shard_leaf(tree, spec, mesh)
+        return {k: cut(tree.pop(k), spec[k]) for k in list(tree)}
 
     def shard(path, tree):
         sub = specs
         for k in path:
             sub = sub[k]
-        return shard_tree(tree, sub, mesh)
+        return cut(tree, sub)
 
-    return M.init_model(cfg, plan, seed=seed, device=device, shard=shard)
+    def draw():
+        out = M.init_model(cfg, plan, seed=seed, device=device, shard=shard)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+            torch.cuda.empty_cache()
+        return out
+
+    if not (td.is_available() and td.is_initialized()):
+        return draw()
+    params = None
+    for turn in range(mesh.n_ranks):
+        if turn == mesh.rank:
+            params = draw()
+        td.barrier()
+    return params
 
 
 def _contains(outer, inner) -> bool:

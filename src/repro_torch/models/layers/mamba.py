@@ -1,14 +1,26 @@
 """Mamba-1 block, jamba's sequence mixer.
 
-Port of the single-device path of ``repro.models.layers.mamba``: in
-projection, depthwise causal conv over the sequence, chunked selective
-scan in f32, gated out projection. The decode cache is the conv tail
-``conv`` [B, d_conv - 1, d_inner] in the model's dtype and the SSM state
-``ssm`` [B, d_inner, d_state] in float32; both are recurrent (order
-dependent), so speculative decoding rolls them back from copies
-(``serving/kvcache.py``). A prefill must see the prompt unpadded: a pad
-token changes the state. Tensor- and sequence-parallel paths are not
-ported.
+Port of ``repro.models.layers.mamba``: in projection, depthwise causal
+conv over the sequence, chunked selective scan in f32, gated out
+projection. The decode cache is the conv tail ``conv`` [B, d_conv - 1,
+d_inner] in the model's dtype and the SSM state ``ssm`` [B, d_inner,
+d_state] in float32; both are recurrent (order dependent), so
+speculative decoding rolls them back from copies (``serving/kvcache.py``).
+A prefill must see the prompt unpadded: a pad token changes the state.
+
+Under a sharded plan, Megatron-SP as in JAX: d_inner is tensor-parallel
+over ``plan.tp_axis`` (the scan's channels are independent), so the
+forward all-gathers x over the sequence, runs the column-sharded in
+projections, the conv and the whole sequence's scan on the rank's
+d_inner, and reduce-scatters the row-sharded out projection over the
+sequence; decode psums its output over tp. The caches keep each rank's
+d_inner (conv [B, d_conv - 1, di_loc], ssm [B, di_loc, d_state]), so a
+prefill's cache is already in its decode layout. Where the port departs
+from JAX: B, C and the step sizes' low-rank input are products over
+d_inner (``uc @ w_bc``, ``uc @ w_dt_in``, rows sharded over tp), and the
+port sums them over tp (``Dist.psum_for_shards``, whose backward sums
+the cotangents too); JAX uses each rank's partial sum, so its sharded
+Mamba is not its single device's (ROADMAP queue 3).
 """
 from __future__ import annotations
 
@@ -93,39 +105,45 @@ def _ssm_scan(u, dt_, b, c, log_a, d_skip, h0, chunk: int = 128):
     return y + u * d_skip, h
 
 
-def _gates(params, uc):
-    """B, C [.., ds] and the step sizes dt [.., di], float32, from the
-    conv output `uc`."""
-    bc = (uc @ params["w_bc"]).float()
+def _gates(params, uc, plan: ShardingPlan, dist: Dist):
+    """B, C [.., ds] and the step sizes dt [.., di_loc], float32, from the
+    conv output `uc` [.., di_loc]. B, C and dt's low-rank input are sums
+    over all of d_inner: on a tp-sharded rank, its partials summed in f32
+    over tp."""
+    tp = plan.tp_axis
+    bc = dist.psum_for_shards((uc @ params["w_bc"]).float(), tp)
     b, c = torch.chunk(bc, 2, dim=-1)
-    dt_ = F.softplus(((uc @ params["w_dt_in"]) @ params["w_dt"]).float()
-                     + params["dt_bias"].float())
+    dt_in = dist.psum_for_shards((uc @ params["w_dt_in"]).float(), tp).to(uc.dtype)
+    dt_ = F.softplus((dt_in @ params["w_dt"]).float() + params["dt_bias"].float())
     return b, c, dt_
 
 
 def mamba_fwd(params, x, cfg, plan: ShardingPlan, dist: Dist, *,
               make_cache: bool = False):
-    """x: [B, S, D]. Returns (y [B, S, D], {"conv", "ssm"} | None): the conv
-    tail is the last d_conv - 1 rows of the in projection before the conv,
-    zero rows first when S < d_conv - 1."""
-    if dist.size(plan.seq_axis) > 1 or dist.size(plan.tp_axis) > 1:
-        raise NotImplementedError("sharded Mamba comes with the sharded mixers "
-                                  "(ROADMAP queue 1, item 5c)")
+    """x: [B, S_loc, D], sequence-sharded over ``plan.seq_axis``. Returns
+    (y [B, S_loc, D], {"conv", "ssm"} | None): the conv tail is the last
+    d_conv - 1 rows of the in projection of the whole sequence before the
+    conv, zero rows first when S < d_conv - 1."""
+    seq_ax, tp = plan.seq_axis, plan.tp_axis
+    if dist.size(tp) > 1 and seq_ax != tp:
+        raise ValueError("sharded Mamba is Megatron-SP: the sequence axis must "
+                         f"be the tp axis ({seq_ax!r} != {tp!r})")
     di, dtr, ds, dc = _dims(cfg)
-    B, S, _ = x.shape
-    u = x @ params["w_x"]                                          # [B, S, di]
-    z = x @ params["w_z"]
-    conv_w = params["conv_w"]                                      # [dc, di]
+    xg = dist.all_gather(x, seq_ax, dim=1)                         # [B, S, D]
+    B, S, _ = xg.shape
+    u = xg @ params["w_x"]                                         # [B, S, di_loc]
+    z = xg @ params["w_z"]
+    conv_w = params["conv_w"]                                      # [dc, di_loc]
     u_pad = F.pad(u, (0, 0, dc - 1, 0))
     conv = sum(u_pad[:, i:i + S] * conv_w[i] for i in range(dc)) + params["conv_b"]
     uc = F.silu(conv.float()).to(u.dtype)
-    b, c, dt_ = _gates(params, uc)
+    b, c, dt_ = _gates(params, uc, plan, dist)
 
-    h0 = torch.zeros((B, di, ds), dtype=torch.float32, device=x.device)
+    h0 = torch.zeros((B, u.shape[-1], ds), dtype=torch.float32, device=x.device)
     y, h_fin = _ssm_scan(uc.float(), dt_, b, c, params["log_a"],
                          params["d_skip"], h0)
     y = (y * F.silu(z.float())).to(x.dtype)
-    out = y @ params["w_out"]
+    out = dist.reduce_scatter(y @ params["w_out"], seq_ax, dim=1)
 
     cache = None
     if make_cache:
@@ -134,26 +152,24 @@ def mamba_fwd(params, x, cfg, plan: ShardingPlan, dist: Dist, *,
 
 
 def mamba_decode(params, x, cache, cfg, plan: ShardingPlan, dist: Dist):
-    """x: [B, 1, D]; cache: conv [B, d_conv - 1, di], ssm [B, di, ds] f32.
-    One step of the conv and the scan. Returns (y [B, 1, D], cache) with
-    the cache written in place (each leaf keeps its dtype)."""
-    if dist.size(plan.tp_axis) > 1:
-        raise NotImplementedError("tensor-parallel Mamba comes with the sharded "
-                                  "mixers (ROADMAP queue 1, item 5c)")
+    """x: [B, 1, D], replicated over tp; cache: conv [B, d_conv - 1,
+    di_loc], ssm [B, di_loc, ds] f32. One step of the conv and the scan.
+    Returns (y [B, 1, D], cache) with the cache written in place (each leaf
+    keeps its dtype)."""
     xt = x[:, 0]
-    u = xt @ params["w_x"]                                         # [B, di]
+    u = xt @ params["w_x"]                                         # [B, di_loc]
     z = xt @ params["w_z"]
-    conv_in = torch.cat([cache["conv"], u[:, None]], dim=1)        # [B, dc, di]
+    conv_in = torch.cat([cache["conv"], u[:, None]], dim=1)        # [B, dc, di_loc]
     conv = torch.einsum("bcd,cd->bd", conv_in, params["conv_w"]) + params["conv_b"]
     uc = F.silu(conv.float()).to(u.dtype)
-    b, c, dt_ = _gates(params, uc)
+    b, c, dt_ = _gates(params, uc, plan, dist)
 
     a = -torch.exp(params["log_a"])
-    da = torch.exp(dt_[..., None] * a)                             # [B, di, ds]
+    da = torch.exp(dt_[..., None] * a)                             # [B, di_loc, ds]
     h = cache["ssm"] * da + (dt_ * uc.float())[..., None] * b[:, None, :]
     y = torch.einsum("bdn,bn->bd", h, c) + uc.float() * params["d_skip"]
     y = (y * F.silu(z.float())).to(x.dtype)
-    out = y @ params["w_out"]
+    out = dist.psum(y @ params["w_out"], plan.tp_axis)
     cache["conv"].copy_(conv_in[:, 1:])
     cache["ssm"].copy_(h)
     return out[:, None], cache

@@ -12,8 +12,15 @@ semantics) or a [B] tensor, one position per slot, as the engine passes
 it. RoPE, the cache write and the mask then go per row. A position past
 the cache writes the NEW latent at row S - 1, the JAX
 ``dynamic_update_slice`` clamp; this differs from the GQA decode, which
-writes the old row back there. Weights are replicated; sequence-sharded
-prefill is not ported.
+writes the old row back there.
+
+Weights are replicated under every plan (``head_tp_ok`` is False for
+MLA). Sequence-sharded (train, prefill), a rank projects its own
+positions ``r * S_loc + arange(S_loc)``, all-gathers the latent and the
+roped key over the sequence before decompressing K and V, and attends
+with its queries offset by ``r * S_loc``; its prefill cache is its own
+positions, which ``kvcache.pad_to_capacity`` gathers into the decode
+cache, replicated over ``model`` with the batch over the data axes.
 """
 from __future__ import annotations
 
@@ -77,31 +84,34 @@ def _decompress(params, c_kv, cfg):
 
 def mla_fwd(params, x, cfg, plan: ShardingPlan, dist: Dist, *,
             make_cache: bool = False):
-    """Causal latent attention over x: [B, S, D]. The shared rope key is
-    folded into each head by augmenting q and k with the rope dims; v is
-    zero-padded to the same width and the output sliced back to hd.
-    Returns (y [B, S, D], {"c_kv", "k_rope"} | None)."""
-    if dist.size(plan.seq_axis) > 1:
-        raise NotImplementedError("sequence-sharded MLA comes with the sharded "
-                                  "mixers (ROADMAP queue 1, item 5c)")
-    B, s, _ = x.shape
-    q_n, q_r, c_kv, k_r = _qkv(params, x, cfg, torch.arange(s, device=x.device))
-    k, v = _decompress(params, c_kv, cfg)
+    """Causal latent attention over x: [B, S_loc, D], sequence-sharded over
+    ``plan.seq_axis``. The shared rope key is folded into each head by
+    augmenting q and k with the rope dims; v is zero-padded to the same
+    width and the output sliced back to hd. Returns (y [B, S_loc, D],
+    {"c_kv", "k_rope"} of the rank's own positions | None)."""
+    seq_ax = plan.seq_axis
+    B, s_loc, _ = x.shape
+    start = dist.index(seq_ax) * s_loc
+    q_n, q_r, c_kv, k_r = _qkv(params, x, cfg,
+                               start + torch.arange(s_loc, device=x.device))
+    k, v = _decompress(params, dist.all_gather(c_kv, seq_ax, dim=1), cfg)
+    k_rg = dist.all_gather(k_r, seq_ax, dim=1)
     q_aug = torch.cat([q_n, q_r], dim=-1)
-    k_aug = torch.cat([k, k_r[:, :, None].expand(*k.shape[:3], k_r.shape[-1])],
+    k_aug = torch.cat([k, k_rg[:, :, None].expand(*k.shape[:3], k_rg.shape[-1])],
                       dim=-1)
     v_pad = torch.nn.functional.pad(v, (0, q_r.shape[-1]))
-    o = flash_attn(q_aug, k_aug, v_pad, causal=True)[..., :cfg.head_dim]
-    y = o.reshape(B, s, -1) @ params["w_o"]
+    o = flash_attn(q_aug, k_aug, v_pad, causal=True, q_offset=start)[..., :cfg.head_dim]
+    y = o.reshape(B, s_loc, -1) @ params["w_o"]
     cache = {"c_kv": c_kv, "k_rope": k_r} if make_cache else None
     return y, cache
 
 
 def mla_decode(params, x, cache, pos, cfg, plan: ShardingPlan, dist: Dist):
-    """x: [B, 1, D]; cache: c_kv [B, S, r], k_rope [B, S, rp]; pos: scalar
-    or [B]. The new latent goes to row min(pos, S - 1) of each slot, then
-    every head attends over rows <= pos of the decompressed cache, scores
-    and softmax in f32, scale 1/sqrt(hd + rp). Returns (y [B, 1, D],
+    """x: [B, 1, D]; cache: c_kv [B, S, r], k_rope [B, S, rp] (all positions:
+    replicated over model under a sharded plan); pos: scalar or [B]. The
+    new latent goes to row min(pos, S - 1) of each slot, then every head
+    attends over rows <= pos of the decompressed cache, scores and softmax
+    in f32, scale 1/sqrt(hd + rp). Returns (y [B, 1, D],
     cache) with the cache written in place."""
     hd, rp = cfg.head_dim, cfg.mla_rope_head_dim
     B = x.shape[0]

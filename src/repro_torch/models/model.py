@@ -27,6 +27,7 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.layers import common
 from repro_torch.sharding.dist import Dist, NullDist
 from repro_torch.sharding.plans import ShardingPlan, null_plan
+from repro_torch.sharding.specs import cache_specs, local_shape
 
 
 def init_model(cfg: ModelConfig, plan: Optional[ShardingPlan] = None, *,
@@ -140,7 +141,7 @@ def train_loss(params, batch, cfg: ModelConfig, plan: Optional[ShardingPlan] = N
     for ax in plan.batch_axes or ():
         loss_sum, cnt = dist.psum(loss_sum, ax), dist.psum(cnt, ax)
     loss = loss_sum / torch.clamp(cnt, min=1.0)
-    if cfg.moe is not None:
+    if cfg.moe is not None and torch.is_tensor(aux):   # a stack with a MoE layer
         aux_mean = aux / max(cfg.num_layers, 1)
         for ax in (plan.batch_axes or ()) + ((seq_ax,) if seq_ax else ()):
             aux_mean = dist.psum(aux_mean, ax) / dist.size(ax)
@@ -213,7 +214,7 @@ def decode_step(params, caches, tokens, pos, cfg: ModelConfig,
 
 def init_cache(cfg: ModelConfig, plan: Optional[ShardingPlan] = None,
                batch: int = 1, seq: int = 1, enc_seq: int = 0, *,
-               device="cuda") -> List[dict]:
+               device="cuda", mesh=None) -> List[dict]:
     """Zero-filled decode caches, per layer: k, v [batch, KV, seq, hd], or a
     ring [batch, KV, min(window, seq), hd] for a sliding-window layer; MLA's
     c_kv [batch, seq, r] and k_rope [batch, seq, rp]; Mamba's conv
@@ -221,39 +222,46 @@ def init_cache(cfg: ModelConfig, plan: Optional[ShardingPlan] = None,
     wkv [batch, nh, hd, hd] and shift [batch, D], with the channel mix's
     shift [batch, D] in the "ffn" group; for an encoder-decoder, the
     "cross" group's k, v [batch, KV, enc_seq, hd]. ssm and wkv are float32
-    in any model dtype."""
+    in any model dtype. These are the global shapes; with `mesh`, each leaf
+    is this rank's shard of it under `plan`'s ``specs.cache_specs``."""
     dev = resolve_device(device)
     dt = common.dtype_of(cfg)
+    layer_specs = cache_specs(cfg, plan) if mesh is not None else None
 
     def zeros(shape, dtype=dt):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     caches = []
-    for spec in cfg.layer_specs:
+    for i, spec in enumerate(cfg.layer_specs):
         tf.check_supported(spec, cfg, plan)
         if spec.mixer == "mamba":
             mc = cfg.mamba
             di = mc.expand * cfg.d_model
-            c = {"conv": zeros((batch, mc.d_conv - 1, di)),
-                 "ssm": zeros((batch, di, mc.d_state), torch.float32)}
+            c = {"conv": ((batch, mc.d_conv - 1, di), dt),
+                 "ssm": ((batch, di, mc.d_state), torch.float32)}
         elif spec.mixer == "rwkv":
             hd = cfg.rwkv.head_dim
-            c = {"wkv": zeros((batch, cfg.d_model // hd, hd, hd), torch.float32),
-                 "shift": zeros((batch, cfg.d_model))}
+            c = {"wkv": ((batch, cfg.d_model // hd, hd, hd), torch.float32),
+                 "shift": ((batch, cfg.d_model), dt)}
         elif cfg.attn_kind == "mla":
-            c = {"c_kv": zeros((batch, seq, cfg.mla_kv_lora_rank)),
-                 "k_rope": zeros((batch, seq, cfg.mla_rope_head_dim))}
+            c = {"c_kv": ((batch, seq, cfg.mla_kv_lora_rank), dt),
+                 "k_rope": ((batch, seq, cfg.mla_rope_head_dim), dt)}
         else:
             rows = seq
             if spec.mixer == "attn_local" and cfg.sliding_window:
                 rows = min(cfg.sliding_window, seq)
             shape = (batch, cfg.num_kv_heads, rows, cfg.head_dim)
-            c = {"k": zeros(shape), "v": zeros(shape)}
+            c = {"k": (shape, dt), "v": (shape, dt)}
         layer = {"mixer": c}
         if spec.mixer == "rwkv":
-            layer["ffn"] = {"shift": zeros((batch, cfg.d_model))}
+            layer["ffn"] = {"shift": ((batch, cfg.d_model), dt)}
         if cfg.is_encoder_decoder:
             shape = (batch, cfg.num_kv_heads, enc_seq, cfg.head_dim)
-            layer["cross"] = {"k": zeros(shape), "v": zeros(shape)}
-        caches.append(layer)
+            layer["cross"] = {"k": (shape, dt), "v": (shape, dt)}
+        if layer_specs is not None:
+            layer = {g: {n: (local_shape(sh, layer_specs[i][g][n], mesh), d)
+                         for n, (sh, d) in leaves.items()}
+                     for g, leaves in layer.items()}
+        caches.append({g: {n: zeros(sh, d) for n, (sh, d) in leaves.items()}
+                       for g, leaves in layer.items()})
     return caches

@@ -29,6 +29,7 @@ from repro_torch.models.layers import moe as moe_mod
 from repro_torch.models.layers import rwkv as rwkv_mod
 from repro_torch.sharding.dist import Dist
 from repro_torch.sharding.plans import ShardingPlan
+from repro_torch.sharding.specs import is_mla
 
 
 ENCODER_PERIOD = (LayerSpec(mixer="attn", ffn="dense"),)
@@ -43,7 +44,7 @@ def check_supported(spec: LayerSpec, cfg: ModelConfig,
                     plan: Optional[ShardingPlan] = None):
     """Refuse, by name, a layer the port does not run: on one device any
     GQA or MLA attention, Mamba or RWKV mixer with a dense or MoE FFN;
-    under a sharded plan GQA attention only, and no encoder-decoder."""
+    under a sharded plan the same but RWKV, and no encoder-decoder."""
     attn_ok = spec.mixer in ("attn", "attn_local") and cfg.attn_kind in ("gqa", "mla")
     frontend_ok = cfg.frontend in ("", "vit_patches") or (
         cfg.frontend == "audio_frames" and cfg.is_encoder_decoder)
@@ -53,19 +54,12 @@ def check_supported(spec: LayerSpec, cfg: ModelConfig,
             f"layer {spec} of {cfg.name} is not ported yet (only GQA or MLA "
             "attn, attn_local, mamba and rwkv mixers with dense or moe FFNs; "
             "the vit_patches frontend, or audio frames into an encoder)")
-    if sharded(plan):
-        gqa = spec.mixer in ("attn", "attn_local") and cfg.attn_kind == "gqa"
-        if not gqa or cfg.is_encoder_decoder:
-            what = "MLA" if _is_mla(spec, cfg) else (
-                "cross-attention" if gqa else spec.mixer)
-            raise NotImplementedError(
-                f"{what} layers of {cfg.name} under a sharded plan come with "
-                "the sharded mixers (ROADMAP queue 1, item 5c); sharded plans "
-                "run GQA attention with dense or MoE FFNs")
-
-
-def _is_mla(spec: LayerSpec, cfg: ModelConfig) -> bool:
-    return spec.mixer in ("attn", "attn_local") and cfg.attn_kind == "mla"
+    if sharded(plan) and (spec.mixer == "rwkv" or cfg.is_encoder_decoder):
+        what = "rwkv" if spec.mixer == "rwkv" else "cross-attention"
+        raise NotImplementedError(
+            f"{what} layers of {cfg.name} under a sharded plan come with the "
+            "sharded mixers (ROADMAP queue 1, item 5c); sharded plans run GQA "
+            "and MLA attention and Mamba with dense or MoE FFNs")
 
 
 def init_layer(spec: LayerSpec, cfg: ModelConfig, plan: ShardingPlan, gen, *,
@@ -96,7 +90,7 @@ def _init_mixer(spec: LayerSpec, cfg: ModelConfig, plan: ShardingPlan, gen):
         return mamba_mod.init_mamba(cfg, plan, gen)
     if spec.mixer == "rwkv":
         return rwkv_mod.init_rwkv_tm(cfg, plan, gen)
-    if _is_mla(spec, cfg):
+    if is_mla(spec, cfg):
         return mla_mod.init_mla(cfg, plan, gen)
     return attn.init_attention(cfg, plan, gen)
 
@@ -137,7 +131,7 @@ def apply_layer(spec: LayerSpec, p, x, cfg, plan: ShardingPlan, dist: Dist, *,
         else:
             h, c = rwkv_mod.rwkv_tm_fwd(p["mixer"], h, cfg, plan, dist,
                                         make_cache=make_cache)
-    elif _is_mla(spec, cfg):
+    elif is_mla(spec, cfg):
         if mode == "decode":
             h, c = mla_mod.mla_decode(p["mixer"], h, cache["mixer"], pos, cfg,
                                       plan, dist)

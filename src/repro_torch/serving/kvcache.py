@@ -29,6 +29,8 @@ import torch.nn.functional as F
 # leaf-name -> seq dim of a non-window positional leaf
 _POSITIONAL_SEQ_DIM = {"k": 2, "v": 2, "c_kv": 1, "k_rope": 1}
 _RECURRENT_KEYS = {"conv", "ssm", "wkv", "shift"}
+# positional leaves that the decode layout replicates over the kv axis
+_REPLICATED_IN_DECODE = {"c_kv", "k_rope"}
 
 
 def _leaf_info(cfg, layer: int, group: str, leaf: str) -> Tuple[str, int]:
@@ -70,7 +72,9 @@ def pad_to_capacity(cfg, caches: List[dict], from_seq: int, to_seq: int,
     [r*to_seq/n, (r+1)*to_seq/n) for decode. JAX pads the global array and
     lets the decode sharding cut it again; here that is a re-layout across
     the ranks: an all-gather over the kv axis, the pad, and this rank's
-    slice."""
+    slice. MLA's latent leaves (c_kv, k_rope) are replicated over the kv
+    axis in decode: gathered and padded, they are kept whole. Mamba's
+    leaves are recurrent and already in their decode layout."""
     if to_seq < from_seq:
         raise ValueError(f"capacity {to_seq} < prefill length {from_seq}")
     n = 1 if dist is None else dist.size(plan.kv_axis)
@@ -90,7 +94,7 @@ def pad_to_capacity(cfg, caches: List[dict], from_seq: int, to_seq: int,
             x = dist.all_gather(x, plan.kv_axis, dim=dim)
         widths = [0, 0] * (x.dim() - dim - 1) + [0, to_seq - from_seq]
         x = F.pad(x, widths)
-        if n > 1:
+        if n > 1 and name not in _REPLICATED_IN_DECODE:
             r, s_loc = dist.index(plan.kv_axis), to_seq // n
             x = x.narrow(dim, r * s_loc, s_loc).contiguous()
         return x

@@ -37,20 +37,32 @@ does not shard, which completes it. The rules that follow from it:
   all_to_all       the inverse all_to_all (split and concat swapped);
   ppermute / roll  the inverse permutation;
   psum             the identity: the summands are partials that the
-                   ranks hold apart, and every rank's replica of the sum
-                   hands its cotangent to its own summand once. (JAX
-                   under ``check_vma=False`` transposes a psum to a psum,
-                   which counts the seed n times: ROADMAP queue 3);
+                   ranks hold apart, and what follows the sum is computed
+                   alike on every rank, so every rank's replica of the
+                   sum holds the whole cotangent and hands it to its own
+                   summand once. (JAX under ``check_vma=False`` transposes
+                   a psum to a psum, which counts the seed n times:
+                   ROADMAP queue 3);
+  psum_for_shards  the sum again (Megatron's pair of all-reduces): for a
+                   sum that feeds work each rank does on its own shard,
+                   so that each rank's cotangent of the sum is only the
+                   part its shard produces, and the summands need all of
+                   them. The one layer with such a sum is the
+                   tensor-parallel Mamba: B, C and the step sizes' low-rank
+                   input are sums over the d_inner shards (``uc @ w_bc``,
+                   ``uc @ w_dt_in``) that feed the rank's own channels;
   pmax             no gradient: its input is detached, as JAX's callers
                    ``stop_gradient`` it.
-A parameter used after a psum, in a region every rank computes alike,
-would get its whole gradient on each rank and be counted n times by
-``reduce_grads``; no layer of the port has one (the final norm runs
-before the sequence gather, on the rank's own positions).
+Which psum a layer calls is named at the call: the rule follows from what
+the sum feeds, not from a run-time setting. A parameter used after a
+psum, in a region every rank computes alike, would get its whole
+gradient on each rank and be counted n times by ``reduce_grads``; no
+layer of the port has one (the final norm runs before the sequence
+gather, on the rank's own positions).
 ``observer``, when set, is called as ``observer(op, x, axis, **info)``
 before each collective with more than one rank (``info``: split_dim and
-concat_dim of an all-to-all; backward=True for the gathers, scatters and
-all-to-alls a backward runs), and as ``observer("p2p", t, None)`` for each
+concat_dim of an all-to-all; backward=True for the gathers, scatters,
+all-to-alls and sums a backward runs), and as ``observer("p2p", t, None)`` for each
 tensor ``exchange`` sends: ``chip_smoke.py`` counts bytes with it.
 """
 from __future__ import annotations
@@ -174,8 +186,8 @@ class Dist:
     # the public ones wrap them in autograd Functions when x wants a
     # gradient (a collective over one rank is the identity either way).
 
-    def _reduce(self, x, axis, op, name):
-        self._observe(name, x, axis)
+    def _reduce(self, x, axis, op, name, backward=False):
+        self._observe(name, x, axis, backward=backward)
         group = self._need_mesh(axis).group(axis)
 
         def run(inp, out):
@@ -183,8 +195,8 @@ class Dist:
             td.all_reduce(out, op=op, group=group)
         return self._run(run, x, x.shape)
 
-    def _psum(self, x, axis):
-        return self._reduce(x, axis, td.ReduceOp.SUM, "psum")
+    def _psum(self, x, axis, backward=False):
+        return self._reduce(x, axis, td.ReduceOp.SUM, "psum", backward)
 
     def _all_gather(self, x, axis, dim, backward=False):
         n = self.size(axis)
@@ -249,6 +261,16 @@ class Dist:
             return _Psum.apply(x, self, axis)
         return self._psum(x, axis)
 
+    def psum_for_shards(self, x, axis: Optional[AxisName]):
+        """The sum over `axis` of partials whose sum feeds work each rank
+        does on its own shard: its backward is the sum over `axis` too
+        (see the module docstring)."""
+        if self.size(axis) == 1:
+            return x
+        if self._grad(x):
+            return _PsumForShards.apply(x, self, axis)
+        return self._psum(x, axis)
+
     def pmax(self, x, axis: Optional[AxisName]):
         """No gradient: the input is detached."""
         if self.size(axis) == 1:
@@ -309,6 +331,18 @@ class _Psum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None, None
+
+
+class _PsumForShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dist, axis):
+        ctx.args = (dist, axis)
+        return dist._psum(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        dist, axis = ctx.args
+        return dist._psum(g, axis, backward=True), None, None
 
 
 class _AllGather(torch.autograd.Function):

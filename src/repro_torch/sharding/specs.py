@@ -8,13 +8,13 @@ dict per layer in a list, not period-stacked. ``P`` holds one entry per
 dim: None, an axis name, or a tuple of names (a 1-tuple is stored as its
 name, as JAX stores it).
 
-Covered: the GQA attention, dense and MoE FFN, embedding and norm leaves
-of serving and training plans, and the GQA caches. A training plan with
-``fsdp_axis`` extends each leaf's spec by ``common.fsdp_spec`` (JAX's
-``init_layer`` / ``init_model`` do it leaf by leaf, from the global
-shapes that ``param_shapes`` gives here). MLA, Mamba, RWKV and
-cross-attention under a sharded plan come with the sharded mixers
-(ROADMAP queue 1, item 5c).
+Covered: the GQA attention, MLA, Mamba, dense and MoE FFN, embedding and
+norm leaves of serving and training plans, and the GQA, MLA and Mamba
+caches. A training plan with ``fsdp_axis`` extends each leaf's spec by
+``common.fsdp_spec`` (JAX's ``init_layer`` / ``init_model`` do it leaf by
+leaf, from the global shapes that ``param_shapes`` gives here). RWKV and
+cross-attention under a sharded plan come with the rest of the sharded
+mixers (ROADMAP queue 1, item 5c).
 """
 from __future__ import annotations
 
@@ -48,15 +48,19 @@ def replicated(ndim: int) -> P:
 
 
 def _refuse_sharded_mixer(spec: LayerSpec, cfg: ModelConfig):
-    if spec.mixer not in ("attn", "attn_local") or cfg.attn_kind != "gqa":
-        kind = "MLA" if cfg.attn_kind == "mla" else spec.mixer
+    if spec.mixer == "rwkv":
         raise NotImplementedError(
-            f"sharded {kind} layers of {cfg.name} come with the sharded "
-            "mixers (ROADMAP queue 1, item 5c)")
+            f"sharded rwkv layers of {cfg.name} come with the sharded mixers "
+            "(ROADMAP queue 1, item 5c)")
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             "cross-attention under a sharded plan comes with the sharded "
             "mixers (ROADMAP queue 1, item 5c)")
+
+
+def is_mla(spec: LayerSpec, cfg: ModelConfig) -> bool:
+    """True for an attention layer of an MLA config."""
+    return spec.mixer in ("attn", "attn_local") and cfg.attn_kind == "mla"
 
 
 def norm_specs() -> dict:
@@ -78,6 +82,30 @@ def attention_specs(plan: ShardingPlan) -> dict:
             "w_o": replicated(2)}
 
 
+def mla_specs(cfg: ModelConfig) -> dict:
+    """MLA's weights are replicated under every plan (JAX's ``init_mla``)."""
+    return {k: replicated(len(s)) for k, s in _mla_shapes(cfg).items()}
+
+
+def mamba_specs(plan: ShardingPlan) -> dict:
+    """d_inner over tp: the in projections and the conv by column, the
+    out projection and the B, C, dt input projections by row (JAX's
+    ``init_mamba``)."""
+    tp = plan.tp_axis
+    return {"w_x": P(None, tp), "w_z": P(None, tp), "conv_w": P(None, tp),
+            "conv_b": P(tp), "w_bc": P(tp, None), "w_dt_in": P(tp, None),
+            "w_dt": P(None, tp), "dt_bias": P(tp), "log_a": P(tp, None),
+            "d_skip": P(tp), "w_out": P(tp, None)}
+
+
+def mixer_specs(spec: LayerSpec, cfg: ModelConfig, plan: ShardingPlan) -> dict:
+    if spec.mixer == "mamba":
+        return mamba_specs(plan)
+    if is_mla(spec, cfg):
+        return mla_specs(cfg)
+    return attention_specs(plan)
+
+
 def dense_ffn_specs(plan: ShardingPlan) -> dict:
     ax = plan.ffn_axes
     return {"w_gate": P(None, ax), "w_up": P(None, ax), "w_out": P(ax, None)}
@@ -97,7 +125,7 @@ def moe_specs(cfg: ModelConfig, plan: ShardingPlan) -> dict:
 def layer_specs(spec: LayerSpec, cfg: ModelConfig, plan: ShardingPlan) -> dict:
     _refuse_sharded_mixer(spec, cfg)
     ffn = dense_ffn_specs(plan) if spec.ffn == "dense" else moe_specs(cfg, plan)
-    return {"norm1": norm_specs(), "mixer": attention_specs(plan),
+    return {"norm1": norm_specs(), "mixer": mixer_specs(spec, cfg, plan),
             "norm2": norm_specs(), "ffn": ffn}
 
 
@@ -114,6 +142,11 @@ def param_shapes(cfg: ModelConfig, plan: ShardingPlan) -> dict:
     stack = []
     for spec in cfg.layer_specs:
         _refuse_sharded_mixer(spec, cfg)
+        mixer = attn
+        if spec.mixer == "mamba":
+            mixer = _mamba_shapes(cfg)
+        elif is_mla(spec, cfg):
+            mixer = _mla_shapes(cfg)
         if spec.ffn == "dense":
             ffn = {"w_gate": (d, cfg.d_ff), "w_up": (d, cfg.d_ff), "w_out": (cfg.d_ff, d)}
         else:
@@ -125,9 +158,26 @@ def param_shapes(cfg: ModelConfig, plan: ShardingPlan) -> dict:
                 dsh = m.d_shared_expert * m.num_shared_experts
                 ffn.update(w_shared_gate=(d, dsh), w_shared_up=(d, dsh),
                            w_shared_down=(dsh, d))
-        stack.append({"norm1": {"scale": (d,)}, "mixer": dict(attn),
+        stack.append({"norm1": {"scale": (d,)}, "mixer": dict(mixer),
                       "norm2": {"scale": (d,)}, "ffn": ffn})
     return {"embed": embed, "stack": stack, "final_norm": {"scale": (d,)}}
+
+
+def _mla_shapes(cfg: ModelConfig) -> dict:
+    d, H, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    r, qr, rp = cfg.mla_kv_lora_rank, cfg.mla_q_lora_rank, cfg.mla_rope_head_dim
+    return {"w_dq": (d, qr), "w_uq": (qr, H * (hd + rp)), "w_dkv": (d, r),
+            "w_kr": (d, rp), "w_uk": (r, H * hd), "w_uv": (r, H * hd),
+            "w_o": (H * hd, d), "q_norm": (qr,), "kv_norm": (r,)}
+
+
+def _mamba_shapes(cfg: ModelConfig) -> dict:
+    mc, d = cfg.mamba, cfg.d_model
+    di, ds, dc = mc.expand * d, mc.d_state, mc.d_conv
+    dtr = mc.dt_rank or -(-d // 16)
+    return {"w_x": (d, di), "w_z": (d, di), "conv_w": (dc, di), "conv_b": (di,),
+            "w_bc": (di, 2 * ds), "w_dt_in": (di, dtr), "w_dt": (dtr, di),
+            "dt_bias": (di,), "log_a": (di, ds), "d_skip": (di,), "w_out": (di, d)}
 
 
 def param_specs(cfg: ModelConfig, plan: ShardingPlan) -> dict:
@@ -155,11 +205,26 @@ def cache_specs(cfg: ModelConfig, plan: ShardingPlan, batch: int = 0,
     """The spec list of ``init_cache``'s caches under `plan`: JAX's
     ``abstract_cache(cfg, plan, batch, seq)[1]`` unstacked. Full-attention
     k, v are [B, KV, S, hd] over (batch axes, -, kv axis, -); a
-    sliding-window ring is sharded over the batch only."""
-    bax = plan.batch_axes
+    sliding-window ring is sharded over the batch only; Mamba's conv
+    [B, dc - 1, di] and ssm [B, di, ds] over (batch axes, d_inner over
+    tp); MLA's c_kv [B, S, r] and k_rope [B, S, rp] over the batch axes,
+    replicated over model. Where the port departs from JAX: a prefill
+    plan's MLA leaves are the positions of each rank of the kv axis (the
+    prefill's own, which ``kvcache.pad_to_capacity`` gathers), over
+    (batch axes, kv axis, -). JAX describes them as its decode layout,
+    so that its sharded prefill keeps one rank's positions
+    (ROADMAP queue 3)."""
+    bax, tp = plan.batch_axes, plan.tp_axis
     out = []
     for spec in cfg.layer_specs:
         _refuse_sharded_mixer(spec, cfg)
+        if spec.mixer == "mamba":
+            out.append({"mixer": {"conv": P(bax, None, tp), "ssm": P(bax, tp, None)}})
+            continue
+        if is_mla(spec, cfg):
+            s = P(bax, plan.kv_axis if plan.kind == "prefill" else None, None)
+            out.append({"mixer": {"c_kv": s, "k_rope": s}})
+            continue
         if spec.mixer == "attn_local" and cfg.sliding_window:
             s = P(bax, None, None, None)
         else:

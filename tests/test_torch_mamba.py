@@ -201,11 +201,31 @@ def test_prefill_then_decode_equals_one_forward(split):
 
 
 def test_mamba_refuses_sharding():
+    """Megatron-SP Mamba runs on two gloo ranks (mesh (1, 2): the sequence
+    and d_inner over model): its forward, prefill cache and two decode
+    steps equal the port's single device at 1e-5. What it still refuses is
+    a plan whose sequence axis is not its tp axis. (Held against JAX's
+    single device on the 2x2 mesh, with the gradients, in
+    ``test_torch_sharded_mixers.py``.)"""
+    from repro_torch.launch import serve
+    from torch_mixer_workers import mixer_layer
     _, tcfg, _, tp = models()
+    tm = tp["stack"][0]["mixer"]
+    x, feed = rand(1, 2, 8, tcfg.d_model), rand(2, 2, 2, 1, tcfg.d_model)
+    job = dict(cfg=tcfg, params=tm, x=x, w=np.ones_like(x), feed=feed, cap=16)
+    got = serve.spawn(mixer_layer, (job,), mesh_shape=(1, 2), transport="gloo",
+                      device="cpu", timeout=120)[0]
+    y, cache = TMB.mamba_fwd(tm, torch.from_numpy(x), tcfg, null_plan("prefill"), DIST,
+                             make_cache=True)
+    close(torch.from_numpy(got["y"]), y)
+    for n in ("conv", "ssm"):
+        close(torch.from_numpy(got["cache"][n]), cache[n])
+    for i in range(2):
+        yt, cache = TMB.mamba_decode(tm, torch.from_numpy(feed[i]), cache, tcfg, PLAN, DIST)
+        close(torch.from_numpy(got["decode"][i]), yt)
     plan = dataclasses.replace(null_plan("prefill"), tp_axis="model")
-    x = torch.from_numpy(rand(0, 1, 4, tcfg.d_model))
-    with pytest.raises(NotImplementedError):
-        TMB.mamba_fwd(tp["stack"][0]["mixer"], x, tcfg, plan, Dist({"model": 2}))
+    with pytest.raises(ValueError, match="Megatron-SP"):
+        TMB.mamba_fwd(tm, torch.from_numpy(x), tcfg, plan, Dist({"model": 2}))
 
 
 # ---------------------------------------------------------------------------

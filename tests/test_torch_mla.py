@@ -193,11 +193,32 @@ def test_mla_decode_past_capacity_matches_jax_clamped_write(pos):
 
 
 def test_mla_fwd_refuses_a_sharded_sequence():
+    """A sharded sequence now runs: on two gloo ranks (mesh (1, 2), the
+    sequence over model, the weights replicated) MLA's forward equals the
+    port's single device at 1e-5, its prefill cache gathered from the
+    ranks' positions too, and two decode steps over the cache that
+    ``pad_to_capacity`` gathers and replicates equal the single device's.
+    (Held against JAX's single device on the 2x2 mesh, with the gradients,
+    in ``test_torch_sharded_mixers.py``.)"""
+    from repro_torch.launch import serve
+    from torch_mixer_workers import mixer_layer
     _, tcfg, _, tp = models()
-    plan = dataclasses.replace(null_plan("prefill"), seq_axis="model")
-    x = torch.from_numpy(rand(0, 1, 4, tcfg.d_model))
-    with pytest.raises(NotImplementedError):
-        TMLA.mla_fwd(tp["stack"][0]["mixer"], x, tcfg, plan, Dist({"model": 2}))
+    tm = tp["stack"][0]["mixer"]
+    x, feed = rand(1, 2, 8, tcfg.d_model), rand(2, 2, 2, 1, tcfg.d_model)
+    job = dict(cfg=tcfg, params=tm, x=x, w=np.ones_like(x), feed=feed, cap=16)
+    got = serve.spawn(mixer_layer, (job,), mesh_shape=(1, 2), transport="gloo",
+                      device="cpu", timeout=120)[0]
+    y, cache = TMLA.mla_fwd(tm, torch.from_numpy(x), tcfg, null_plan("prefill"), DIST,
+                            make_cache=True)
+    close(torch.from_numpy(got["y"]), y)
+    cache = kvcache.pad_to_capacity(tcfg, [{"mixer": cache}], 8, 16)[0]["mixer"]
+    for n in ("c_kv", "k_rope"):
+        close(torch.from_numpy(got["relaid"][n]), cache[n])
+    for i in range(2):
+        yt, cache = TMLA.mla_decode(tm, torch.from_numpy(feed[i]), cache, 8 + i, tcfg,
+                                    PLAN, DIST)
+        close(torch.from_numpy(got["decode"][i]), yt)
+    assert got["local_cache_shapes"]["c_kv"] == (2, 16, tcfg.mla_kv_lora_rank)
 
 
 # ---------------------------------------------------------------------------

@@ -69,7 +69,8 @@ NEAR_TIE = 0.05
 SERVE_STEPS = 5
 ARCH_KW = {"olmoe-1b-7b": dict(num_heads=4, num_kv_heads=2),
            "gemma3-1b": dict(num_heads=4, num_kv_heads=2),
-           "deepseek-67b": dict(num_heads=4, num_kv_heads=2, d_ff=128)}
+           "deepseek-67b": dict(num_heads=4, num_kv_heads=2, d_ff=128),
+           "deepseek-v3": {}, "jamba-v0.1-52b": {}}
 
 
 def configs(arch, dtype=None):
@@ -219,8 +220,16 @@ def _same_tree(port, jx):
 @pytest.mark.parametrize("arch,kind,kw", [
     ("olmoe-1b-7b", "prefill", {}), ("olmoe-1b-7b", "decode", {}),
     ("gemma3-1b", "prefill", {}), ("gemma3-1b", "decode", {}),
-    ("deepseek-67b", "decode", {"ffn_2d": True})])
+    ("deepseek-67b", "decode", {"ffn_2d": True}),
+    ("deepseek-v3", "prefill", {}), ("deepseek-v3", "decode", {}),
+    ("jamba-v0.1-52b", "prefill", {}), ("jamba-v0.1-52b", "decode", {})])
 def test_spec_trees_match_jax(arch, kind, kw):
+    """The port's param and cache spec trees against ``abstract_model`` and
+    ``abstract_cache``, leaf for leaf. One departure: a prefill plan's MLA
+    cache leaves are the prefill's own, each rank of the kv axis holding
+    its positions (JAX gives them its decode layout, replicated over
+    model, so that its sharded prefill keeps one rank's positions:
+    ``test_torch_sharded_mixers.py``)."""
     jcfg, tcfg = configs(arch)
     seq = PROMPT if kind == "prefill" else CAP
     jplan = jax_make_plan(jcfg, JShapeCell("c", seq, B, kind), AXES, SHAPE, fsdp=False, **kw)
@@ -231,16 +240,20 @@ def test_spec_trees_match_jax(arch, kind, kw):
     jspecs = JS.abstract_model(jcfg, jplan)[1]
     jspecs = dict(jspecs, stack=_unstack_specs(jspecs["stack"], jcfg))
     _same_tree(SP.param_specs(tcfg, tplan), jspecs)
-    jc = JS.abstract_cache(jcfg, jplan, B, seq)[1]
-    _same_tree(SP.cache_specs(tcfg, tplan, B, seq), _unstack_specs(jc, jcfg))
+    jc = _unstack_specs(JS.abstract_cache(jcfg, jplan, B, seq)[1], jcfg)
+    if tcfg.attn_kind == "mla" and kind == "prefill":
+        assert all(tuple(la["mixer"]["c_kv"])[1:] == (None, None) for la in jc)
+        jc = [{"mixer": {k: JP(s[0], "model", None) for k, s in la["mixer"].items()}}
+              for la in jc]
+    _same_tree(SP.cache_specs(tcfg, tplan, B, seq), jc)
 
 
 def test_specs_refuse_what_this_slice_does_not_shard():
-    """What still raises is item 5c's: MLA, Mamba, RWKV and cross-attention
+    """What still raises is item 5c's second part: RWKV and cross-attention
     under a sharded plan, in serving and in training (the spec trees, and
-    the train step that builds them). Training across ranks (item 5b) no
-    longer raises."""
-    for arch in ("deepseek-v3", "jamba-v0.1-52b", "rwkv6-1.6b", "seamless-m4t-medium"):
+    the train step that builds them). Training across ranks (item 5b) and
+    MLA and Mamba (item 5c-i) no longer raise."""
+    for arch in ("rwkv6-1.6b", "seamless-m4t-medium"):
         cfg = reduced_config(get_arch(arch))
         for cell in (ShapeCell("d", CAP, B, "decode"), ShapeCell("t", 32, B, "train")):
             plan = make_plan(cfg, cell, AXES, SHAPE)
@@ -248,9 +261,11 @@ def test_specs_refuse_what_this_slice_does_not_shard():
                 SP.param_specs(cfg, plan)
         with pytest.raises(NotImplementedError, match="item 5c"):
             steps.build_cell(cfg, ShapeCell("t", 32, B, "train"), MESH, transport="gloo")
-    cfg = reduced_config(get_arch("olmoe-1b-7b"))
-    step, plan = steps.build_cell(cfg, ShapeCell("t", 32, B, "train"), MESH, transport="gloo")
-    assert plan.fsdp_axis == "data" and isinstance(step, steps.TrainStep)
+    for arch in ("olmoe-1b-7b", "deepseek-v3", "jamba-v0.1-52b"):
+        cfg = reduced_config(get_arch(arch))
+        step, plan = steps.build_cell(cfg, ShapeCell("t", 32, B, "train"), MESH,
+                                      transport="gloo")
+        assert plan.fsdp_axis == "data" and isinstance(step, steps.TrainStep)
 
 
 def test_build_cell_binds_local_shapes():

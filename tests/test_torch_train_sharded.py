@@ -12,8 +12,10 @@ spawn for the module), reduced configs in f32.
   the train step's loss within 1e-5 of JAX's single-device ``train_loss``
   (the reference test allows 2e-2) and its reduced gradients, gathered,
   within the tolerance of ``test_torch_train_loss.py`` of ``jax.grad``.
-  The jamba case of the reference test needs the sharded Mamba mixer
-  (ROADMAP queue 1, item 5c): its specs refuse it here.
+  Its jamba case runs the sharded Mamba mixer (and the reduced
+  deepseek-v3 the sequence-sharded MLA), FSDP off and on, held the same
+  way: the reference test's own jamba case passes at ``rel=2e-2`` while
+  its sharded Mamba misses its single device (ROADMAP queue 3).
 - ``test_perf_knobs.py::test_ring_attention_matches_megatron`` mirrored on
   deepseek-67b (8 heads, 2 KV heads): ring against the port's Megatron-SP
   and JAX's single device, 1e-5.
@@ -32,6 +34,7 @@ spawn for the module), reduced configs in f32.
   misses its own Megatron-SP path (K/V heads paired with another rank's
   query heads).
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -77,14 +80,27 @@ B, S = 4, 32
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)          # as test_torch_train_loss.py
 HEADS = {"olmoe-1b-7b": dict(num_heads=4, num_kv_heads=2),
          "starcoder2-3b": dict(num_heads=4, num_kv_heads=2),
-         "deepseek-67b": dict(num_heads=8, num_kv_heads=2)}
+         "deepseek-67b": dict(num_heads=8, num_kv_heads=2),
+         "jamba-v0.1-52b": {}, "deepseek-v3": {}}
 VARIANTS = {"base": dict(fsdp=False), "fsdp": dict(fsdp=True),
             "ring": dict(fsdp=False, ring_attn=True)}
 
 
 def configs(arch, dtype="float32"):
+    """(JAX config, port config), reduced. jamba routes top-2 of 8 experts:
+    its capacity factor is raised to 4 so that no token is dropped, and its
+    load-balance loss is off. That loss is a mean over each rank's tokens
+    (its capacity group), not over the whole batch as on one device, and
+    the two differ where routing is not uniform (the reduced olmoe and
+    deepseek-v3 route every token to all 8 experts)."""
     kw = dict(HEADS[arch], dtype=dtype)
-    return jax_reduced(jax_arch(arch)).replace(**kw), reduced_config(get_arch(arch)).replace(**kw)
+    j, t = jax_reduced(jax_arch(arch)).replace(**kw), reduced_config(get_arch(arch)).replace(**kw)
+    if arch == "jamba-v0.1-52b":
+        j = j.replace(moe=dataclasses.replace(j.moe, capacity_factor=4.0,
+                                              router_aux_loss_coef=0.0))
+        t = t.replace(moe=dataclasses.replace(t.moe, capacity_factor=4.0,
+                                              router_aux_loss_coef=0.0))
+    return j, t
 
 
 def tokens_for(cfg):
@@ -109,17 +125,32 @@ def jax_loss_and_grads(jp, jcfg, tcfg, tok):
 def _cases():
     """(jobs, references) for the one spawn of the module."""
     jobs, refs = {}, {}
-    for arch in ("olmoe-1b-7b", "starcoder2-3b", "deepseek-67b"):
+    for arch in ("olmoe-1b-7b", "starcoder2-3b", "deepseek-67b", "jamba-v0.1-52b",
+                 "deepseek-v3"):
         jcfg, tcfg = configs(arch)
         jp = jax_weights(jcfg)
         tp = convert.params_from_jax(jp, tcfg, device="cpu")
         tok = tokens_for(tcfg)
         refs[arch] = dict(jp=jp, tp=tp, jcfg=jcfg, tcfg=tcfg, tok=tok,
                           jax=jax_loss_and_grads(jp, jcfg, tcfg, tok))
-        variants = ("base", "ring") if arch == "deepseek-67b" else VARIANTS
+        variants = {"deepseek-67b": ("base", "ring"), "jamba-v0.1-52b": ("base", "fsdp"),
+                    "deepseek-v3": ("base", "fsdp")}.get(arch, VARIANTS)
         for v in variants:
             jobs[f"grads/{arch}/{v}"] = dict(kind="grads", cfg=tcfg, params=tp, tokens=tok,
                                              plan_kw=VARIANTS[v])
+    # jamba cut to its first layer: a MoE config whose stack has no MoE layer
+    # (JAX inits no stack shorter than its period: held to the port's single
+    # device, which the cases above hold to JAX's)
+    tcfg = configs("jamba-v0.1-52b")[1].replace(num_layers=1)
+    tp = M.init_model(tcfg, None, seed=0, device="cpu")
+    tok = tokens_for(tcfg)
+    leaves = [t.requires_grad_() for t in convert.tree_leaves(tp)]
+    loss = M.train_loss(tp, {"tokens": torch.from_numpy(tok)}, tcfg, remat=False)
+    grads = torch.autograd.grad(loss, leaves)
+    tp = convert.tree_map(lambda t: t.detach(), tp)
+    refs["jamba-1-layer"] = dict(tp=tp, jax=(float(loss.detach()), [g.numpy() for g in grads]))
+    jobs["grads/jamba-1-layer/fsdp"] = dict(kind="grads", cfg=tcfg, params=tp, tokens=tok,
+                                            plan_kw=VARIANTS["fsdp"])
     r = refs["starcoder2-3b"]
     jobs["loss/starcoder2-3b"] = dict(kind="loss", cfg=r["tcfg"], params=r["tp"],
                                       tokens=r["tok"], plan_kw=dict(fsdp=False))
@@ -275,7 +306,8 @@ def _unstack_specs(tree, jcfg):
     return [per[i % len(per)] for i in range(n_per * len(per))] + list(tree["rem"])
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "starcoder2-3b", "gemma3-1b"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "starcoder2-3b", "gemma3-1b",
+                                  "jamba-v0.1-52b", "deepseek-v3"])
 def test_fsdp_spec_trees_match_jax(arch):
     """A training plan with FSDP: the port's spec tree equals
     ``abstract_model``'s (FSDP applied leaf by leaf before stacking), and
@@ -309,13 +341,47 @@ def tspecs_as_tree(specs):
     return [tspecs_as_tree(v) for v in specs]
 
 
-def test_jamba_waits_for_the_sharded_mamba_mixer():
-    """The reference test's third case, jamba, needs the sharded Mamba
-    mixer (ROADMAP queue 1, item 5c): its training specs refuse it."""
-    cfg = reduced_config(get_arch("jamba-v0.1-52b"))
-    plan = make_plan(cfg, ShapeCell("t", S, B, "train"), AXES, SHAPE, fsdp=False)
-    with pytest.raises(NotImplementedError, match="item 5c"):
-        SP.param_specs(cfg, plan)
+def test_jamba_waits_for_the_sharded_mamba_mixer(runs):
+    """The reference test's third case, jamba, now runs: the train step of
+    the reduced jamba (seven Mamba layers and an attention layer, d_inner
+    and the sequence over model) on the 2x2 mesh, FSDP off and on, against
+    JAX's single-device loss (1e-5) and ``jax.grad`` (the tolerance of
+    ``test_torch_train_loss.py``). Its Mamba gradients need the psum whose
+    backward is a psum (``Dist.psum_for_shards``)."""
+    for variant in ("base", "fsdp"):
+        _check_train_step(runs, "jamba-v0.1-52b", variant)
+
+
+@pytest.mark.parametrize("variant", ["base", "fsdp"])
+def test_deepseek_v3_train_step_matches_single_device(runs, variant):
+    """The reduced deepseek-v3 (sequence-sharded MLA, replicated weights;
+    MoE with a shared expert): the train step on the 2x2 mesh, FSDP off
+    and on, against JAX's single device."""
+    res = _check_train_step(runs, "deepseek-v3", variant)
+    assert res[0]["plan"].attn_mode == "replicated"
+
+
+def test_moe_config_without_a_moe_layer_trains_across_ranks(runs):
+    """jamba cut to its first layer (Mamba and a dense FFN: a MoE config with
+    no MoE layer, as ``chip_smoke.py``'s jamba gate runs it): the train step
+    on the 2x2 mesh with FSDP against the port's single device. The loss
+    used to psum its load-balance term, a Python 0.0 with no MoE layer, and
+    raise."""
+    _check_train_step(runs, "jamba-1-layer", "fsdp")
+
+
+def _check_train_step(runs, arch, variant):
+    out, refs = runs
+    res = out[f"grads/{arch}/{variant}"]
+    assert (res[0]["plan"].fsdp_axis == "data") == (variant == "fsdp")
+    loss, grads = refs[arch]["jax"]
+    for r in range(4):
+        assert res[r]["loss"] == pytest.approx(loss, rel=1e-5), (r, res[r]["loss"], loss)
+    keys = list(flatten(refs[arch]["tp"]))
+    assert len(res[0]["grads"]) == len(grads) == len(keys)
+    for key, got, want in zip(keys, res[0]["grads"], grads):
+        np.testing.assert_allclose(got, want, err_msg=key, **GRAD_TOL)
+    return res
 
 
 # ---------------------------------------------------------------------------

@@ -78,8 +78,7 @@ def run_jobs(mesh, dist, dev, jobs):
         if job["kind"] == "decode":
             step = steps.build_decode_step(cfg, cell, plan, mesh, dist=dist, logits=True)
             params = shard_tree(job["params"], step.param_specs, mesh)
-            caches = shard_tree(M.init_cache(cfg, plan, B, S, device="cpu"),
-                                step.cache_specs, mesh)
+            caches = M.init_cache(cfg, plan, B, S, device="cpu", mesh=mesh)
             tok = torch.from_numpy(shard_leaf(job["tokens"], step.in_specs["tokens"], mesh))
             tok, caches, lg = step(params, caches, tok, job.get("pos", 0))
             lg = dist.all_gather(lg, plan.vocab_axis, dim=-1)
@@ -124,9 +123,11 @@ def _serve(cfg, job, mesh, dist):
         _, caches, lg = dec(params, caches, tok, P + i)
         lg = dist.all_gather(lg, dec_plan.vocab_axis, dim=-1)
         logits.append(_np(dist.all_gather(lg, dec_plan.batch_axes, dim=0))[:, 0])
-    # the positions of this rank's cache shard that hold K (first layer)
-    k = caches[0]["mixer"]["k"]
-    filled = (k.float().abs().sum(dim=(0, 1, 3)) > 0).nonzero()[:, 0].tolist()
+    # the positions of this rank's cache shard that hold K (first layer,
+    # when it is a GQA layer)
+    k = caches[0]["mixer"].get("k")
+    filled = None if k is None else \
+        (k.float().abs().sum(dim=(0, 1, 3)) > 0).nonzero()[:, 0].tolist()
     return np.stack(logits), filled
 
 
