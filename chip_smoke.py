@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --sharded-only    # phases 14 and 15 (across ranks) alone
     python3 chip_smoke.py --sharded-only deepseek-v3 jamba-v0.1-52b   # the named ones
+    python3 chip_smoke.py --sharded-only rwkv6-1.6b seamless-m4t-medium train_sharded
 
 Phases, each printing its own lines before the last:
   1. environment: torch/CUDA versions and the card's name and power limit;
@@ -85,14 +86,21 @@ Phases, each printing its own lines before the last:
      ``sharded.deepseek-v3`` (1 of 61 layers; f32 with 32 of 256 experts;
      with four cards also 4 layers, timed only) and
      ``sharded.jamba-v0.1-52b`` (8 of 32 layers; f32 at 5), whose
-     references replay the run's expert choices.
+     references replay the run's expert choices; then RWKV and
+     cross-attention, ``sharded.rwkv6-1.6b`` (24 layers) and
+     ``sharded.seamless-m4t-medium`` (12 + 12, the frames drawn from the
+     seed, ``flash_decode_lse`` on self- and cross-attention), bf16 and
+     f32, their all-reduce and all-gather bytes held to the shapes'
+     prediction; ``kernel.flash_decode_lse`` also at seamless's two shard
+     shapes (hd 64).
  15. training across ranks (after ``sharded.olmoe-1b-7b``):
      ``train_sharded.olmoe-1b-7b`` trains olmoe-1b-7b at published widths,
      4 of 16 layers, through ``launch.train`` on the same 2x2 mesh (FSDP
      over data; EP, TP and the sequence over model): 6 steps of 8 x 512
      tokens in bf16 with the bf16 and with the fp8 dispatch, and the f32
-     gates at 2 layers (FSDP, and FSDP with ring attention) and jamba's at
-     1 layer (its Mamba layer's backward) against the single-device port;
+     gates at 2 layers (FSDP, and FSDP with ring attention), jamba's at
+     1 layer (its Mamba layer's backward), rwkv6's at 2 and seamless's at
+     2 + 2 against the single-device port;
      ``kernel.moe_gmm.grad`` times the kernel at one rank's training shape
      (E_loc 32, T 384).
 Every path sets the launch counters to 0 just before it and reads them
@@ -514,22 +522,33 @@ def check_flash_decode_lse(torch, ref, kfd, gen):
     hd 128). Model rank 0's shard holds every position the decode reaches
     (lengths 65-95); model rank 1's holds none (lengths 0: o = 0, l = 0,
     m = -1e30, the reference's values). Also the split edges at B 8, f32,
-    and jamba-v0.1-52b's shard (H 32 over KH 8). f32: o, m, l within 1e-4;
+    jamba-v0.1-52b's shard (H 32 over KH 8), and seamless-m4t-medium's
+    self- and cross-attention shards (hd 64; the cross cache every row
+    valid). f32: o, m, l within 1e-4;
     bf16: the normalised output against the f32 truth, 1.5x the plain
     version's error + 1e-3, and m within 1e-4."""
     results = {}
     # (name, B, H, KH, lengths, dtype, timed); jamba-v0.1-52b's attention
     # layer on its shard: B_loc 4, all 32 query heads (gathered over tp)
     # over its 8 KV heads, 16 new tokens after a prompt of 64
-    cases = [("sharded_decode", 4, 16, 16, [65, 72, 88, 95], "bfloat16", True),
-             ("sharded_empty", 4, 16, 16, [0, 0, 0, 0], "bfloat16", True),
-             ("sharded_decode_f32", 4, 16, 16, [65, 72, 88, 95], "float32", False),
-             ("edges", 8, 16, 16, [0, 1, 63, 64, 65, 128, 255, 256], "bfloat16", False),
-             ("edges_f32", 8, 16, 16, [0, 1, 63, 64, 65, 128, 255, 256], "float32", False),
-             ("jamba_sharded_g4", 4, 32, 8, [65, 70, 75, 79], "bfloat16", True),
-             ("jamba_sharded_g4_f32", 4, 32, 8, [65, 70, 75, 79], "float32", False)]
-    hd, S = 128, 256
-    for name, B, H, KH, lens, dt, timed in cases:
+    # seamless-m4t-medium's two shapes on its shard (B_loc 4, H = KH = 16,
+    # hd 64, S_loc 256): self-attention over the decode's positions on
+    # model rank 0 (16 new tokens after a prompt of 64), cross-attention
+    # over every row of the zero-padded encoder cache (enc_len = max_seq)
+    cases = [("sharded_decode", 4, 16, 16, 128, [65, 72, 88, 95], "bfloat16", True),
+             ("sharded_empty", 4, 16, 16, 128, [0, 0, 0, 0], "bfloat16", True),
+             ("sharded_decode_f32", 4, 16, 16, 128, [65, 72, 88, 95], "float32", False),
+             ("edges", 8, 16, 16, 128, [0, 1, 63, 64, 65, 128, 255, 256], "bfloat16", False),
+             ("edges_f32", 8, 16, 16, 128, [0, 1, 63, 64, 65, 128, 255, 256], "float32",
+              False),
+             ("jamba_sharded_g4", 4, 32, 8, 128, [65, 70, 75, 79], "bfloat16", True),
+             ("jamba_sharded_g4_f32", 4, 32, 8, 128, [65, 70, 75, 79], "float32", False),
+             ("seamless_self", 4, 16, 16, 64, [65, 70, 75, 79], "bfloat16", True),
+             ("seamless_self_f32", 4, 16, 16, 64, [65, 70, 75, 79], "float32", False),
+             ("seamless_cross", 4, 16, 16, 64, [256] * 4, "bfloat16", True),
+             ("seamless_cross_f32", 4, 16, 16, 64, [256] * 4, "float32", False)]
+    S = 256
+    for name, B, H, KH, hd, lens, dt, timed in cases:
         tdt = getattr(torch, dt)
         q = torch.randn((B, H, hd), generator=gen, device="cuda").to(tdt)
         k = torch.randn((B, KH, S, hd), generator=gen, device="cuda").to(tdt)
@@ -1303,9 +1322,11 @@ def sharded_reference(torch, M, kvcache, cfg, job, tokens, groups, device="cuda"
     `routing` (the sharded run's expert choices, one [T, k] tensor per MoE
     call in the single device's token order), every MoE layer takes those
     experts (``replaying_route``), and `routed_otherwise` receives the
-    number of tokens per call whose own choice differs. Returns the f32
-    logits [new_tokens, B, V_pad]: the prefill's last position, then each
-    decode step's."""
+    number of tokens per call whose own choice differs. An encoder-decoder
+    encodes the run's frames (``serve.frames`` from the job's seed, in the
+    job's dtype) and decodes over ``enc_len = max_seq``, as the run does.
+    Returns the f32 logits [new_tokens, B, V_pad]: the prefill's last
+    position, then each decode step's."""
     from repro_torch.kernels import ops
     from repro_torch.models.layers import moe as moe_mod
     from repro_torch.models.layers.common import fp8_dequantize, fp8_quantize
@@ -1317,6 +1338,14 @@ def sharded_reference(torch, M, kvcache, cfg, job, tokens, groups, device="cuda"
     P, S = job["prompt_len"], job["max_seq"]
     prompts = torch.as_tensor(tokens["prompts"], device=device)
     out = torch.as_tensor(tokens["tokens"], device=device)
+    batch, enc_len = {"tokens": prompts}, 0
+    if cfg.is_encoder_decoder:
+        # the run's frames, rounded to its dtype as it encoded them
+        from repro_torch.launch.serve import frames, job_config
+        batch["frames"] = torch.from_numpy(frames(cfg.d_model, prompts.shape[0], P,
+                                                  job["seed"])).to(
+            device, getattr(torch, job_config(job).dtype))
+        enc_len = S
     try:
         if fp8:
             ops.moe_gmm = lambda x, *w: gmm(fp8_dequantize(*fp8_quantize(x), x.dtype), *w)
@@ -1325,13 +1354,13 @@ def sharded_reference(torch, M, kvcache, cfg, job, tokens, groups, device="cuda"
                                             [] if routed_otherwise is None
                                             else routed_otherwise)
         with torch.no_grad():
-            lg, caches = M.prefill_logits(params, {"tokens": prompts}, cfg,
-                                          capacity_groups=groups)
+            lg, caches = M.prefill_logits(params, batch, cfg, capacity_groups=groups)
             caches = kvcache.pad_to_capacity(cfg, caches, P, S)
             logits = [lg[:, 0]]
             for i in range(job["new_tokens"] - 1):
                 lg, caches = M.decode_logits(params, caches, out[:, i:i + 1], P + i,
-                                             cfg, capacity_groups=groups[0])
+                                             cfg, capacity_groups=groups[0],
+                                             enc_len=enc_len)
                 logits.append(lg[:, 0])
     finally:
         ops.moe_gmm, moe_mod.route = gmm, route
@@ -1351,20 +1380,24 @@ def sharded_reference(torch, M, kvcache, cfg, job, tokens, groups, device="cuda"
 # move by O(1), in the single device as in the sharded run, at other
 # positions (on an H100 80GB HBM3 at 700 W without the replay: the bf16
 # single device up to 5.4 from the f32 truth, and 38 of 128 greedy tokens
-# apart from the sharded run)
+# apart from the sharded run). rwkv6-1.6b and seamless-m4t-medium run whole
+# (24 layers; 12 + 12) in both jobs: dense, so no fp8 dispatch job.
 SHARDED_ARCHS = {
     "olmoe-1b-7b": dict(layers=None, new_tokens=32, f32=dict(layers=8)),
     "deepseek-v3": dict(layers=1, new_tokens=16, f32=dict(layers=1, experts=32),
                         timed_layers=4, replay=True),
     "jamba-v0.1-52b": dict(layers=8, new_tokens=16, f32=dict(layers=5), replay=True),
+    "rwkv6-1.6b": dict(layers=None, new_tokens=16, f32=dict(layers=None)),
+    "seamless-m4t-medium": dict(layers=None, new_tokens=16, f32=dict(layers=None)),
 }
 
 
 def sharded_jobs(arch, timed=False, **cut):
-    """The jobs of ``sharded_phase`` for `arch`: bf16, the fp8 dispatch and
-    f32 (16 new tokens), each held to the single device; with `timed`, for
-    an arch with ``timed_layers``, one more bf16 job that deep, timed and
-    not held to a single device (it would not fit one card)."""
+    """The jobs of ``sharded_phase`` for `arch`: bf16, the fp8 dispatch (a
+    MoE config only) and f32 (16 new tokens), each held to the single
+    device; with `timed`, for an arch with ``timed_layers``, one more bf16
+    job that deep, timed and not held to a single device (it would not fit
+    one card)."""
     import dataclasses
 
     from repro_torch.launch.serve import job_config
@@ -1381,6 +1414,8 @@ def sharded_jobs(arch, timed=False, **cut):
     if experts and cfg.moe.num_experts > experts:
         f32["config"]["moe"] = dataclasses.replace(cfg.moe, num_experts=experts)
     jobs = {"bf16": base, "fp8": dict(base, a2a_fp8=True), "f32": f32}
+    if cfg.moe is None:
+        del jobs["fp8"]
     if timed and "timed_layers" in spec:
         jobs[f"bf16_{spec['timed_layers']}_layers"] = dict(
             base, layers=spec["timed_layers"], reference=False)
@@ -1391,8 +1426,11 @@ def predicted_a2a_bytes(cfg, job, mesh=SHARDED_MESH):
     """The MoE all-to-all bytes a rank sends per decode step: E * C * D *
     (bytes per element) * (ep - 1) / ep per MoE layer, E the experts padded
     to the EP group, C the capacity of one rank's B / dp tokens; the fp8
-    dispatch sends 1-byte values and a f32 scale per slot."""
+    dispatch sends 1-byte values and a f32 scale per slot. A config
+    without experts sends none."""
     from repro_torch.models.layers.moe import capacity
+    if cfg.moe is None:
+        return {"dispatch": 0, "combine": 0}
     dp = ep = mesh[0]
     n_moe = sum(s.ffn == "moe" for s in cfg.layer_specs)
     m, d = cfg.moe, cfg.d_model
@@ -1403,6 +1441,46 @@ def predicted_a2a_bytes(cfg, job, mesh=SHARDED_MESH):
     combine = n_moe * e * c * d * el * share
     dispatch = n_moe * (e * c * d + 4 * e * c) * share if job.get("a2a_fp8") else combine
     return {"dispatch": dispatch, "combine": combine}
+
+
+def predicted_dense_decode_bytes(cfg, job, mesh=SHARDED_MESH):
+    """The all-reduce and all-gather bytes (and calls) a rank sends per
+    decode step for a config without experts (RWKV, or GQA attention with
+    dense FFNs, with cross-attention for an encoder-decoder), reckoned from
+    the shapes as ``CountingDist`` counts them: an all-reduce of b bytes
+    over n ranks sends 2 b (n - 1) / n, an all-gather (n - 1) b. A rank
+    holds B / data rows. The embedding psums its [B_loc, D] rows over
+    model; the greedy sample takes a pmax of the f32 row maxima and one of
+    the int64 candidate ids. Each RWKV layer psums its time mix's and its
+    channel mix's [B_loc, D] outputs. Each GQA attention (and cross-)
+    attention gathers q [B_loc, H / tp, hd] over model under head-TP,
+    merges its KV shard's f32 (o [B_loc, H, hd], m, l [B_loc, H]) with a
+    pmax and two psums over the kv axis, and psums its row-sharded output
+    [B_loc, D] under head-TP; a dense FFN psums [B_loc, D]. ``ffn_2d`` is
+    off."""
+    from repro_torch.launch.serve import job_config
+    from repro_torch.sharding.plans import head_tp_ok
+    dp, tp = mesh
+    b, d = job["batch"] // dp, cfg.d_model
+    el = 4 if job_config(job).dtype == "float32" else 2
+    ar_share, ag_share = 2 * (tp - 1) / tp, tp - 1
+    ar = [b * d * el, b * 4, b * 8]                      # embed, greedy sample
+    ag = []
+    head_tp = head_tp_ok(cfg, tp)
+    h, hd = cfg.num_heads, cfg.head_dim
+    n_attn = 1 + cfg.is_encoder_decoder                  # self (+ cross) a layer
+    for spec in cfg.layer_specs:
+        if spec.mixer == "rwkv":
+            ar += [b * d * el] * 2
+            continue
+        for _ in range(n_attn):
+            ar += [b * h * 4, b * h * 4, b * h * hd * 4]
+            if head_tp:
+                ag.append(b * (h // tp) * hd * el)
+                ar.append(b * d * el)
+        ar.append(b * d * el)                            # the dense FFN
+    return {"all_reduce": sum(ar) * ar_share, "all_gather": sum(ag) * ag_share,
+            "calls": {"all_reduce": len(ar), "all_gather": len(ag)}}
 
 
 def sharded_serve_rank(mesh, dist, dev, jobs):
@@ -1457,10 +1535,14 @@ def sharded_phase(torch, M, kvcache, smi, device="cuda", arch="olmoe-1b-7b",
     argmax of the run's own gathered logits, the logits are finite, the
     MoE all-to-all bytes a rank sends per step equal the prediction
     (``predicted_a2a_bytes``), and every rank launches ``moe_gmm`` on every
-    MoE layer and the (o, m, l) ``flash_decode`` on every GQA layer of
-    every decode step (MLA and Mamba layers have no kernel). `device` and
-    `cut` (job keys) are for a rehearsal of this phase on the CPU at a
-    reduced size."""
+    MoE layer and the (o, m, l) ``flash_decode`` on every GQA layer (and
+    every cross-attention) of every decode step (MLA, Mamba and RWKV
+    layers have no kernel). A config without experts (rwkv6, seamless) has
+    no fp8 job; its all-reduce and all-gather bytes a step, and nothing
+    else, equal ``predicted_dense_decode_bytes``. An encoder-decoder's
+    prefill encodes ``serve.frames`` from SEED. `device` and `cut` (job
+    keys) are for a rehearsal of this phase on the CPU at a reduced
+    size."""
     from repro_torch.launch import serve
     from repro_torch.launch.serve import job_config
     tag = "sharded" if arch == "olmoe-1b-7b" else f"sharded.{arch}"
@@ -1495,8 +1577,12 @@ def sharded_phase(torch, M, kvcache, smi, device="cuda", arch="olmoe-1b-7b",
         n_moe = sum(s.ffn == "moe" for s in cfg.layer_specs)
         n_gqa = sum(s.mixer in ("attn", "attn_local") for s in cfg.layer_specs) \
             if cfg.attn_kind == "gqa" else 0
+        n_gqa += cfg.num_layers if cfg.is_encoder_decoder else 0   # cross-attention
         pred = predicted_a2a_bytes(cfg, job)
         out["predicted_by_job"][name] = pred
+        dense = predicted_dense_decode_bytes(cfg, job) if cfg.moe is None else None
+        if dense:
+            out.setdefault("predicted_dense_by_job", {})[name] = dense
         per_rank = []
         for r in range(n_ranks):
             res = ranks[r][j]
@@ -1530,6 +1616,13 @@ def sharded_phase(torch, M, kvcache, smi, device="cuda", arch="olmoe-1b-7b",
             if any(not math.isclose(sent.get(k, 0), v, rel_tol=1e-9) for k, v in pred.items()):
                 failures.append(f"{name} rank {r}: all-to-all bytes a step "
                                 f"{ {k: sent.get(k) for k in pred} }, predicted {pred}")
+            if dense:
+                want_b = {k: dense[k] for k in ("all_reduce", "all_gather")}
+                if set(sent) - set(want_b) or any(
+                        not math.isclose(sent.get(k, 0), v, rel_tol=1e-9)
+                        for k, v in want_b.items()):
+                    failures.append(f"{name} rank {r}: collective bytes a step {sent}, "
+                                    f"predicted {want_b}")
             per_rank.append(row)
             log(f"{tag}.{name}.rank", **{k: v for k, v in row.items()
                                          if k != "decode_ms_per_step"}, nvidia_smi=smi)
@@ -1605,11 +1698,12 @@ def sharded_phase(torch, M, kvcache, smi, device="cuda", arch="olmoe-1b-7b",
         if device == "cuda":
             torch.cuda.empty_cache()
     # the base jobs' predictions under their earlier names
-    pb, pf = out["predicted_by_job"]["bf16"], out["predicted_by_job"]["fp8"]
+    pb, pf = out["predicted_by_job"]["bf16"], out["predicted_by_job"].get("fp8", {})
     out["predicted_bytes_per_step"] = {"dispatch_bf16": pb["dispatch"],
                                        "combine": pb["combine"],
-                                       "dispatch_fp8": pf["dispatch"]}
-    log(f"{tag}.predicted", **out["predicted_by_job"])
+                                       "dispatch_fp8": pf.get("dispatch", 0)}
+    log(f"{tag}.predicted", **out["predicted_by_job"],
+        dense=out.get("predicted_dense_by_job"))
     if failures:
         raise AssertionError(f"sharded.{arch}: " + "; ".join(failures))
     return out
@@ -1644,6 +1738,8 @@ def f32_train_gate(mesh, dist, dev, gate):
     gathered; the gates recomputed from the reference's own router
     probabilities), and a second reference with its own routing is
     reported beside it, with the number of tokens it routes otherwise.
+    An encoder-decoder's batch carries ``serve.frames`` from the seed, in
+    f32, split as the tokens.
     Every gradient leaf is gathered to its global shape; rank 0 computes
     the references while the others wait. Returns (on rank 0) the losses,
     their relative errors, and the worst gradient errors over their
@@ -1652,7 +1748,7 @@ def f32_train_gate(mesh, dist, dev, gate):
     from repro_torch.configs.base import ShapeCell
     from repro_torch.convert import shard_leaf, unshard_leaf
     from repro_torch.launch import steps
-    from repro_torch.launch.serve import job_config, mesh_axes
+    from repro_torch.launch.serve import frames, job_config, mesh_axes
     from repro_torch.models import model as M
     from repro_torch.models.layers import moe as moe_mod
     from repro_torch.sharding.plans import make_plan
@@ -1669,11 +1765,15 @@ def f32_train_gate(mesh, dist, dev, gate):
     params = steps.init_params(cfg, plan, mesh, seed=gate["seed"], device=dev)
     tokens = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
                                     seed=gate["seed"])).batch(0)
-    local = torch.from_numpy(shard_leaf(tokens, step.in_specs["tokens"], mesh)).to(dev)
+    inputs = {"tokens": tokens}
+    if cfg.is_encoder_decoder:
+        inputs["frames"] = frames(cfg.d_model, B, S, gate["seed"])
+    local = {k: torch.from_numpy(shard_leaf(v, step.in_specs[k], mesh)).to(dev)
+             for k, v in inputs.items()}
     route, chosen = moe_mod.route, []
     moe_mod.route = recording_route(route, chosen)
     try:
-        loss, grads = step.loss_and_grads(params, {"tokens": local})
+        loss, grads = step.loss_and_grads(params, local)
     finally:
         moe_mod.route = route
     grads = step.reduce(params, grads)
@@ -1699,8 +1799,8 @@ def f32_train_gate(mesh, dist, dev, gate):
         leaves = [p.requires_grad_() for p in flatten(single).values()]
         moe_mod.route = replaying_route(torch, route, chosen, flips, replay)
         try:
-            l_ref = M.train_loss(single, {"tokens": torch.from_numpy(tokens).to(dev)}, cfg,
-                                 remat=False, capacity_groups=groups)
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in inputs.items()}
+            l_ref = M.train_loss(single, batch, cfg, remat=False, capacity_groups=groups)
             ref = torch.autograd.grad(l_ref, leaves, materialize_grads=True)
             l_ref = l_ref.detach()
         finally:
@@ -1765,7 +1865,9 @@ def train_sharded_phase(torch, smi, device="cuda", **cut):
     of the single-device port's, every gathered gradient within 1e-3 of
     its leaf's largest magnitude; the same for jamba-v0.1-52b at 1 layer (a
     Mamba layer, d_inner and the sequence over model, and a dense FFN), 8
-    x 128 tokens, whose Mamba gradients need ``Dist.psum_for_shards``.
+    x 128 tokens, whose Mamba gradients need ``Dist.psum_for_shards``, for
+    rwkv6-1.6b at 2 layers and for seamless-m4t-medium at 2 + 2 (its
+    frames from ``serve.frames``), both 8 x 128.
     `device` and `cut` (job keys) are for a rehearsal on the CPU at a
     reduced size."""
     from repro_torch.launch import train as launch_train
@@ -1785,9 +1887,16 @@ def train_sharded_phase(torch, smi, device="cuda", **cut):
     jamba = dict(arch="jamba-v0.1-52b", batch=8, seq=128, seed=SEED, layers=1,
                  config=dict(cut.get("config", {}), dtype="float32"))
     jamba.update({k: cut[k] for k in ("reduced", "batch", "seq") if k in cut})
+    # rwkv6 at 2 layers (the WKV heads and d_ff over model) and seamless at
+    # 2 + 2 (the encoder on the sequence-sharded frames, head-TP self- and
+    # cross-attention), full width, 8 x 128 tokens
+    rwkv = dict(jamba, arch="rwkv6-1.6b", layers=2)
+    seamless = dict(jamba, arch="seamless-m4t-medium", layers=2,
+                    config=dict(jamba["config"], encoder_layers=2))
     jobs = {"bf16": base, "fp8": dict(base, a2a_fp8=True)}
     gates = {"f32_fsdp": gate, "f32_fsdp_ring": dict(gate, ring_attn=True),
-             "f32_fsdp_jamba": jamba}
+             "f32_fsdp_jamba": jamba, "f32_fsdp_rwkv": rwkv,
+             "f32_fsdp_seamless": seamless}
     log("train_sharded.transport", transport=transport, cards=n_cards, ranks=n_ranks,
         nvidia_smi=smi)
     t0 = time.perf_counter()

@@ -17,7 +17,9 @@ The default is nccl when there are enough cards, else gloo.
 A job (``serve_job``) draws the global weights from ``--seed`` leaf by
 leaf, each rank keeping its shards (``steps.init_params``), prefills
 ``batch`` prompts of ``prompt_len`` tokens drawn with
-``numpy.random.default_rng(seed)``, re-lays the caches out for a capacity
+``numpy.random.default_rng(seed)`` (an encoder-decoder also encodes
+``prompt_len`` audio frames a prompt, drawn from the same seed:
+``frames``), re-lays the caches out for a capacity
 of ``max_seq`` (``kvcache.pad_to_capacity``), moves the experts from the
 prefill plan's layout (over model) to the decode plan's (over data) once
 (``steps.reshard``), and decodes ``new_tokens - 1`` more tokens greedily.
@@ -25,6 +27,7 @@ prefill plan's layout (over model) to the decode plan's (over data) once
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import queue as queue_mod
 import socket
@@ -42,6 +45,7 @@ from repro_torch.kernels import flash_decode as kfd
 from repro_torch.kernels import moe_gmm as kmoe
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.layers.common import dtype_of
 from repro_torch.serving import kvcache
 from repro_torch.sharding.dist import Dist
 from repro_torch.sharding.plans import make_plan
@@ -162,10 +166,27 @@ def prompts(vocab: int, batch: int, length: int, seed: int) -> np.ndarray:
     return rng.integers(1, vocab, (batch, length), dtype=np.int64)
 
 
+def frames(d_model: int, batch: int, length: int, seed: int, step: int = 0) -> np.ndarray:
+    """An encoder-decoder job's audio frames, already embedded (the audio
+    frontend is a stub): [batch, length, d_model] float32 standard normal
+    from ``numpy.random.default_rng([seed, 1, step])`` (a training job
+    draws each step's anew)."""
+    rng = np.random.default_rng([seed, 1, step])
+    return rng.standard_normal((batch, length, d_model), dtype=np.float32)
+
+
+# the reduction's single WKV head of 64 (d_model 64) cannot split over a
+# model axis: a reduced job cuts the heads to 16 wide (4 heads)
+REDUCED_RWKV_HEAD_DIM = 16
+
+
 def job_config(job: dict):
     cfg = get_arch(job["arch"])
     if job.get("reduced"):
         cfg = reduced_config(cfg)
+        if cfg.rwkv is not None:
+            cfg = cfg.replace(rwkv=dataclasses.replace(cfg.rwkv,
+                                                       head_dim=REDUCED_RWKV_HEAD_DIM))
     over = dict(job.get("config", {}))
     if job.get("layers"):
         over["num_layers"] = job["layers"]
@@ -200,7 +221,9 @@ def serve_job(mesh, dist: Dist, dev: torch.device, job: dict) -> dict:
     the full f32 logits of every step, outside the timed step). Returns
     this rank's timings, peak memory, launch counts per phase and the
     Dist's snapshots (when it keeps any); rank 0 also the prompts, the
-    tokens [B, new_tokens] and the logits [new_tokens, B, V_pad]."""
+    tokens [B, new_tokens] and the logits [new_tokens, B, V_pad]. An
+    encoder-decoder's prefill encodes ``frames(d_model, batch, prompt_len,
+    seed)``, split as the tokens, in the model's dtype."""
     cfg = job_config(job)
     B, P, S, n_new = job["batch"], job["prompt_len"], job["max_seq"], job["new_tokens"]
     seed = job.get("seed", 0)
@@ -225,8 +248,12 @@ def serve_job(mesh, dist: Dist, dev: torch.device, job: dict) -> dict:
     params = steps.init_params(cfg, pre_plan, mesh, seed=seed, device=dev)
     _sync(dev)
     res["init_s"] = time.perf_counter() - t0
-    tokens = torch.from_numpy(shard_leaf(prompts(cfg.vocab_size, B, P, seed),
-                                         prefill.in_specs["tokens"], mesh)).to(dev)
+    batch = {"tokens": torch.from_numpy(shard_leaf(prompts(cfg.vocab_size, B, P, seed),
+                                                   prefill.in_specs["tokens"], mesh)).to(dev)}
+    if cfg.frontend == "audio_frames":
+        batch["frames"] = torch.from_numpy(shard_leaf(
+            frames(cfg.d_model, B, P, seed), prefill.in_specs["frames"],
+            mesh)).to(dev, dtype_of(cfg))
 
     def phase(name, fn):
         _zero_counts()
@@ -240,7 +267,7 @@ def serve_job(mesh, dist: Dist, dev: torch.device, job: dict) -> dict:
         res["snapshots"][name] = _hook(dist, "snapshot")
         return out
 
-    out = phase("prefill", lambda: prefill(params, {"tokens": tokens}))
+    out = phase("prefill", lambda: prefill(params, batch))
     tok, caches = out[0], out[1]
     toks, logits, step_s = [tok], [out[2]] if want_logits else [], []
     caches = phase("relayout", lambda: kvcache.pad_to_capacity(cfg, caches, P, S,

@@ -69,11 +69,15 @@ class Step:
 
 
 def batch_struct(cfg: ModelConfig, shape: ShapeCell, plan: ShardingPlan):
-    """(global shapes, specs) of one step's inputs."""
+    """(global shapes, specs) of one step's inputs: the tokens, and in train
+    and prefill the ViT patches or the audio frames [B, S, D] (in the
+    model's dtype: one frame per token, as JAX's ``batch_struct``)."""
     B, S = shape.global_batch, shape.seq_len
     shapes = {"tokens": (B, S) if shape.kind in ("train", "prefill") else (B, 1)}
     if cfg.frontend == "vit_patches" and shape.kind != "decode":
         shapes["patches"] = (B, cfg.n_frontend_tokens, cfg.d_model)
+    if cfg.frontend == "audio_frames" and shape.kind != "decode":
+        shapes["frames"] = (B, S, cfg.d_model)
     return shapes, batch_specs(cfg, shape.kind, plan)
 
 
@@ -107,7 +111,9 @@ def build_decode_step(cfg: ModelConfig, shape: ShapeCell, plan: ShardingPlan,
     """step(params, caches, tokens, pos) -> (next_token, caches), with the
     vocab-sharded f32 logits [B_loc, 1, V_loc] third when `logits`. Cache
     capacity = shape.seq_len, each rank holding its S / kv positions; the
-    new token lands at the scalar `pos`."""
+    new token lands at the scalar `pos`. An encoder-decoder's
+    cross-attention reads ``enc_len = shape.seq_len`` encoder positions:
+    the whole zero-padded cross cache, as JAX's step does."""
     dist = dist or dist_for(mesh, transport)
     shapes, specs = batch_struct(cfg, shape, plan)
     cspecs = cache_specs(cfg, plan)
@@ -115,9 +121,11 @@ def build_decode_step(cfg: ModelConfig, shape: ShapeCell, plan: ShardingPlan,
     shapes["cache"] = (shape.global_batch, cfg.num_kv_heads, shape.seq_len, cfg.head_dim)
     specs = dict(specs, cache=P(plan.batch_axes, None, plan.kv_axis, None))
     loc = _local(shapes, specs, mesh)
+    enc_len = shape.seq_len if cfg.is_encoder_decoder else 0
 
     def step(params, caches, tokens, pos):
-        lg, caches = M.decode_logits(params, caches, tokens, pos, cfg, plan, dist)
+        lg, caches = M.decode_logits(params, caches, tokens, pos, cfg, plan, dist,
+                                     enc_len=enc_len)
         tok = common.greedy_sample(lg, cfg, plan, dist)
         return (tok, caches, lg) if logits else (tok, caches)
 

@@ -11,12 +11,13 @@ process per rank, started by ``launch.serve.spawn`` with a rendezvous on
 localhost; it runs on the card unless ``--device cpu`` is given, and the
 transport follows ``serve.default_transport`` unless ``--transport`` names
 one. Each rank draws its shards of the global weights from ``--seed``
-(``steps.init_params``), takes its block of each ``SyntheticLM`` batch,
-and runs ``steps.build_train_step``'s step (no remat, as the JAX
-launcher); rank 0 prints the loss of every step and the tokens/s. With
-``--ckpt-dir`` the run saves the global state at its end in
-``mesh[-1]`` files a leaf, and ``--resume`` restores the latest step
-into this mesh's layout first.
+(``steps.init_params``), takes its block of each ``SyntheticLM`` batch
+(and, for an encoder-decoder, of the step's audio frames
+``serve.frames``, split as the tokens), and runs
+``steps.build_train_step``'s step (no remat, as the JAX launcher); rank
+0 prints the loss of every step and the tokens/s. With ``--ckpt-dir`` the
+run saves the global state at its end in ``mesh[-1]`` files a leaf, and
+``--resume`` restores the latest step into this mesh's layout first.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from repro_torch.configs.base import ShapeCell
 from repro_torch.convert import shard_leaf, tree_leaves
 from repro_torch.kernels import moe_gmm as kmoe
 from repro_torch.launch import serve, steps
+from repro_torch.models.layers.common import dtype_of
 from repro_torch.sharding.plans import make_plan
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training import optim
@@ -96,16 +98,24 @@ def train_job(mesh, dist, dev: torch.device, job: dict,
                 dist.reset()
         return time.perf_counter()
 
+    def batch(i):
+        out = {"tokens": torch.from_numpy(shard_leaf(data.batch(i), step.in_specs["tokens"],
+                                                     mesh)).to(dev)}
+        if cfg.frontend == "audio_frames":
+            out["frames"] = torch.from_numpy(shard_leaf(
+                serve.frames(cfg.d_model, B, S, seed, step=i), step.in_specs["frames"],
+                mesh)).to(dev, dtype_of(cfg))
+        return out
+
     for i in range(start, start + n_steps):
-        tokens = torch.from_numpy(shard_leaf(data.batch(i), step.in_specs["tokens"],
-                                             mesh)).to(dev)
+        inputs = batch(i)
         timing = i - start == count_step
         n0 = kmoe.launches
         _sync(dev)
         t = t1 = time.perf_counter()
         if timing and counting:
             dist.reset()
-        loss, grads = step.loss_and_grads(params, {"tokens": tokens})
+        loss, grads = step.loss_and_grads(params, inputs)
         t1 = mark("loss_and_backward", t1, timing)
         grads = step.reduce(params, grads)
         t1 = mark("gradient_reduction", t1, timing)

@@ -50,10 +50,14 @@ Sharded (one rank's shards, as inside JAX's ``shard_map``):
            the chunk arriving from rank r' is used with this rank's KV
            slice as if it were r''s, and its final psum over tp adds the
            head partials of different position chunks (ROADMAP queue 3).
+  cross    ``cross_attention_fwd`` over the sequence-sharded encoder cache
+           (k, v all-gathered; under ``head_tp`` x too, the rank's heads,
+           the row-sharded W_o reduce-scattered), ``cross_attention_decode``
+           over a cache sequence-sharded over ``plan.kv_axis`` through
+           ``ops.flash_decode_lse`` and ``lse_combine``, as the self
+           decode.
 ``attn_chunk_lse`` (``kernels.ref``) is the JAX decode core, and the plain
-version of ``ops.flash_decode_lse``. Cross-attention under head-TP and
-over a sharded encoder cache comes with the sharded mixers (ROADMAP queue
-1, item 5c).
+version of ``ops.flash_decode_lse``.
 """
 from __future__ import annotations
 
@@ -375,17 +379,10 @@ def _decode_out_proj(o, params, plan: ShardingPlan, dist: Dist, B):
 # cross-attention (encoder-decoder)
 # ---------------------------------------------------------------------------
 
-def _single_device(plan: ShardingPlan, dist: Dist):
-    if _head_tp(plan, dist) or dist.size(plan.seq_axis) > 1 \
-            or dist.size(plan.kv_axis) > 1:
-        raise NotImplementedError(
-            "cross-attention under head-TP or over a sharded encoder cache "
-            "comes with the sharded mixers (ROADMAP queue 1, item 5c)")
-
-
 def make_enc_cache(params, enc_out, cfg, plan: ShardingPlan, dist: Dist):
-    """The decoder's read-only encoder k, v [B, KV, Se, hd] from enc_out
-    [B, Se, D]."""
+    """The decoder's read-only encoder k, v [B, KV, Se_loc, hd] from enc_out
+    [B, Se_loc, D] (sequence-sharded: this rank's positions), every KV
+    head (W_k, W_v are replicated)."""
     k = torch.einsum("bsd,dkh->bksh", enc_out, params["w_k"])
     v = torch.einsum("bsd,dkh->bksh", enc_out, params["w_v"])
     return {"k": k.contiguous(), "v": v.contiguous()}
@@ -393,25 +390,58 @@ def make_enc_cache(params, enc_out, cfg, plan: ShardingPlan, dist: Dist):
 
 def cross_attention_fwd(params, x, enc_kv, cfg, plan: ShardingPlan,
                         dist: Dist):
-    """Prefill cross-attention: x [B, S, D] decoder tokens against every
-    position of enc_kv k, v [B, KV, Se, hd]. Returns y [B, S, D]."""
-    _single_device(plan, dist)
-    B, s, _ = x.shape
-    q = (x @ params["w_q"]).reshape(B, s, -1, cfg.head_dim)
-    o = flash_attn(q, enc_kv["k"].transpose(1, 2), enc_kv["v"].transpose(1, 2),
-                   causal=False)
-    return o.reshape(B, s, -1) @ params["w_o"]
+    """Prefill cross-attention: x [B, S_loc, D] decoder tokens against every
+    encoder position, enc_kv k, v [B, KV, Se_loc, hd] sequence-sharded over
+    ``plan.seq_axis`` (all of it on one device); not causal. Returns
+    y [B, S_loc, D]. Under ``head_tp`` (Megatron-SP): x all-gathered over
+    the sequence, q on this rank's heads, k and v all-gathered over the
+    sequence with every KV head and then cut to the heads this rank's q
+    heads map to (``_local_kv_slice``), the row-sharded W_o, and a
+    reduce-scatter that sums the head partials and scatters the sequence.
+    The JAX function cuts the KV heads before the gather over the same
+    axis, so that each position chunk arrives with its sender's heads
+    (ROADMAP queue 3). Replicated: q of the local positions, k and v
+    all-gathered."""
+    hd = cfg.head_dim
+    B, s_loc, _ = x.shape
+    seq_ax = plan.seq_axis
+    k = dist.all_gather(enc_kv["k"].transpose(1, 2), seq_ax, dim=1)   # [B, Se, KV, hd]
+    v = dist.all_gather(enc_kv["v"].transpose(1, 2), seq_ax, dim=1)
+    if _head_tp(plan, dist):
+        xg = dist.all_gather(x, seq_ax, dim=1)                         # [B, S, D]
+        q = (xg @ params["w_q"]).reshape(B, xg.shape[1], -1, hd)      # local heads
+        start, kv_loc = _local_kv_slice(cfg, plan, dist)
+        o = flash_attn(q, k[:, :, start:start + kv_loc], v[:, :, start:start + kv_loc],
+                       causal=False)
+        y = o.reshape(B, xg.shape[1], -1) @ params["w_o"]              # head partials
+        return dist.reduce_scatter(y, seq_ax, dim=1)
+    q = (x @ params["w_q"]).reshape(B, s_loc, -1, hd)
+    o = flash_attn(q, k, v, causal=False)
+    return o.reshape(B, s_loc, -1) @ params["w_o"]
 
 
 def cross_attention_decode(params, x, enc_kv, enc_len: int, cfg,
                            plan: ShardingPlan, dist: Dist):
-    """Decode cross-attention: x [B, 1, D] against the first `enc_len`
-    positions of enc_kv k, v [B, KV, Se, hd], every row alike. Returns
-    y [B, 1, D]."""
-    _single_device(plan, dist)
+    """Decode cross-attention: x [B, 1, D] (replicated over tp) against the
+    first `enc_len` encoder positions, every row alike; enc_kv k, v
+    [B, KV, Se_loc, hd] sequence-sharded over ``plan.kv_axis``. Under
+    ``head_tp`` q is gathered to every head. On a sharded cache each rank
+    attends over its shard through ``ops.flash_decode_lse`` (the (o, m, l)
+    kernel on the card), with the rank's share of `enc_len` as every
+    row's length, and ``lse_combine`` merges the ranks; one device runs
+    ``ops.flash_decode``. Returns y [B, 1, D] (``_decode_out_proj``)."""
     if enc_len < 1:
         raise ValueError(f"cross-attention decode over enc_len {enc_len}")
     B = x.shape[0]
     q = (x[:, 0] @ params["w_q"]).reshape(B, -1, cfg.head_dim)
-    o = kops.flash_decode(q.contiguous(), enc_kv["k"], enc_kv["v"], enc_len)
+    if _head_tp(plan, dist):
+        q = dist.all_gather(q, plan.tp_axis, dim=1)                   # [B, H, hd]
+    q = q.contiguous()
+    if dist.size(plan.kv_axis) > 1:
+        s_loc = enc_kv["k"].shape[2]
+        length = min(max(enc_len - dist.index(plan.kv_axis) * s_loc, 0), s_loc)
+        o, m, lsum = kops.flash_decode_lse(q, enc_kv["k"], enc_kv["v"], length)
+        o = lse_combine(o, m, lsum, plan.kv_axis, dist)
+    else:
+        o = kops.flash_decode(q, enc_kv["k"], enc_kv["v"], enc_len)
     return _decode_out_proj(o, params, plan, dist, B)

@@ -12,8 +12,20 @@ the output gate is SiLU. The decode cache is the time mix's ``wkv`` state
 [B, nh, hd, hd] in float32 and ``shift`` [B, D] (the previous token's
 input), and the channel mix's own ``shift`` [B, D]; all three are
 recurrent, so speculative decoding rolls them back from copies
-(``serving/kvcache.py``). Tensor- and sequence-parallel paths are not
-ported.
+(``serving/kvcache.py``).
+
+Sharded (one rank's shards, as inside JAX's ``shard_map``), the WKV heads
+are independent, so the time mix is head-parallel over ``plan.tp_axis``
+(Megatron-SP): x is all-gathered over the sequence, the column-sharded
+``w_r``, ``w_k``, ``w_v``, ``w_g`` and ``decay_lora_b`` give this rank's
+heads (``decay_lora_a`` is replicated and contracts the whole model width,
+so the LoRA has no partial sum), the whole-sequence scan runs on them, and
+the row-sharded ``w_o`` product is reduce-scattered over the sequence;
+the channel mix is a tensor-parallel FFN over d_ff the same way. In
+decode the token is replicated over tp and the row-sharded products are
+psummed. No sum feeds a rank's own shard, so no ``psum_for_shards``. The
+wkv cache is this rank's heads [B, nh_loc, hd, hd]; both shifts are
+replicated over tp.
 """
 from __future__ import annotations
 
@@ -32,10 +44,9 @@ def _dims(cfg):
     return cfg.d_model // hd, hd
 
 
-def _single_device(plan: ShardingPlan, dist: Dist):
-    if dist.size(plan.seq_axis) > 1 or dist.size(plan.tp_axis) > 1:
-        raise NotImplementedError("sharded RWKV comes with the sharded mixers "
-                                  "(ROADMAP queue 1, item 5c)")
+def _local_heads(params, hd: int) -> int:
+    """This rank's WKV heads: its columns of ``w_r`` over the head dim."""
+    return params["w_r"].shape[-1] // hd
 
 
 def init_rwkv_tm(cfg, plan: ShardingPlan, gen):
@@ -135,27 +146,30 @@ def _gated_out(params, out, g, dtype):
 
 def rwkv_tm_fwd(params, x, cfg, plan: ShardingPlan, dist: Dist, *,
                 make_cache: bool = False):
-    """Time mix. x: [B, S, D]. Returns (y [B, S, D], {"wkv", "shift"} |
-    None)."""
-    _single_device(plan, dist)
-    nh, hd = _dims(cfg)
+    """Time mix. x: [B, S_loc, D], this rank's positions (all of them on
+    one device). Returns (y [B, S_loc, D], {"wkv", "shift"} | None)."""
+    _, hd = _dims(cfg)
+    nh = _local_heads(params, hd)
+    seq_ax = plan.seq_axis
     B = x.shape[0]
-    x_prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
-    r, k, v, g, w = _tm_inputs(params, x, x_prev, nh, hd)
+    xg = dist.all_gather(x, seq_ax, dim=1)                         # [B, S, D]
+    x_prev = F.pad(xg, (0, 0, 1, 0))[:, :-1]
+    r, k, v, g, w = _tm_inputs(params, xg, x_prev, nh, hd)
     u = params["bonus"].float().reshape(nh, hd)
     s0 = torch.zeros((B, nh, hd, hd), dtype=torch.float32, device=x.device)
     out, s_fin = _wkv_scan(r, k, v, w, u, s0)
-    y = _gated_out(params, out, g, x.dtype)
-    cache = {"wkv": s_fin, "shift": x[:, -1].clone()} if make_cache else None
+    y = dist.reduce_scatter(_gated_out(params, out, g, x.dtype), seq_ax, dim=1)
+    cache = {"wkv": s_fin, "shift": xg[:, -1].clone()} if make_cache else None
     return y, cache
 
 
 def rwkv_tm_decode(params, x, cache, cfg, plan: ShardingPlan, dist: Dist):
-    """x: [B, 1, D]; cache: wkv [B, nh, hd, hd] f32, shift [B, D]. One step
-    of the recurrence. Returns (y [B, 1, D], cache) with the cache written
-    in place."""
-    _single_device(plan, dist)
-    nh, hd = _dims(cfg)
+    """x: [B, 1, D] (replicated over tp); cache: wkv [B, nh_loc, hd, hd]
+    f32, shift [B, D]. One step of the recurrence on this rank's heads, the
+    row-sharded output psummed over tp. Returns (y [B, 1, D], cache) with
+    the cache written in place."""
+    _, hd = _dims(cfg)
+    nh = _local_heads(params, hd)
     xt = x[:, 0]
     r, k, v, g, w = _tm_inputs(params, x, cache["shift"][:, None], nh, hd)
     r, k, v, w = r[:, 0], k[:, 0], v[:, 0], w[:, 0]                # [B, nh, hd]
@@ -164,7 +178,7 @@ def rwkv_tm_decode(params, x, cache, cfg, plan: ShardingPlan, dist: Dist):
     kv = k[..., :, None] * v[..., None, :]
     out = torch.einsum("bhk,bhkd->bhd", r, s + u[..., None] * kv)
     s_new = w[..., None] * s + kv
-    y = _gated_out(params, out[:, None], g, x.dtype)
+    y = dist.psum(_gated_out(params, out[:, None], g, x.dtype), plan.tp_axis)
     cache["wkv"].copy_(s_new)
     cache["shift"].copy_(xt)
     return y, cache
@@ -179,15 +193,22 @@ def _channel_mix(params, x, x_prev):
 
 def rwkv_cm_fwd(params, x, plan: ShardingPlan, dist: Dist, *,
                 make_cache: bool = False):
-    """Channel mix. x: [B, S, D]. Returns (y [B, S, D], {"shift"} | None)."""
-    _single_device(plan, dist)
-    y = _channel_mix(params, x, F.pad(x, (0, 0, 1, 0))[:, :-1])
-    return y, ({"shift": x[:, -1].clone()} if make_cache else None)
+    """Channel mix. x: [B, S_loc, D], sequence-sharded (all-gathered
+    before, the d_ff partials reduce-scattered after), or [B, T, D]
+    replicated over tp (the partials psummed), as the JAX function. Returns
+    (y, {"shift"} | None)."""
+    seq_ax = plan.seq_axis
+    seq_sharded = dist.size(seq_ax) > 1
+    xg = dist.all_gather(x, seq_ax, dim=1) if seq_sharded else x
+    y = _channel_mix(params, xg, F.pad(xg, (0, 0, 1, 0))[:, :-1])
+    y = dist.reduce_scatter(y, seq_ax, dim=1) if seq_sharded \
+        else dist.psum(y, plan.tp_axis)
+    return y, ({"shift": xg[:, -1].clone()} if make_cache else None)
 
 
 def rwkv_cm_decode(params, x, cache, plan: ShardingPlan, dist: Dist):
-    """x: [B, 1, D]; cache: shift [B, D], written in place."""
-    _single_device(plan, dist)
-    y = _channel_mix(params, x, cache["shift"][:, None])
+    """x: [B, 1, D] (replicated over tp); cache: shift [B, D], written in
+    place. The d_ff partials are psummed over tp."""
+    y = dist.psum(_channel_mix(params, x, cache["shift"][:, None]), plan.tp_axis)
     cache["shift"].copy_(x[:, 0])
     return y, cache

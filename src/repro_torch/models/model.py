@@ -38,7 +38,7 @@ def init_model(cfg: ModelConfig, plan: Optional[ShardingPlan] = None, *,
     shape; `shard(path, tree)`, when given, maps each piece as soon as it
     is drawn (the embedding, each layer, the norms), so that a rank keeps
     only its shards and never holds the whole model: path is ("embed",),
-    ("stack", i) or ("final_norm",)."""
+    ("stack", i), ("final_norm",), ("encoder", i) or ("enc_norm",)."""
     dev = resolve_device(device)
     plan = plan or null_plan("decode")
     shard = shard or (lambda path, tree: tree)
@@ -52,8 +52,10 @@ def init_model(cfg: ModelConfig, plan: Optional[ShardingPlan] = None, *,
     if cfg.is_encoder_decoder:
         params["encoder"] = tf.init_stack(cfg, plan, gen,
                                           n_layers=cfg.encoder_layers,
-                                          period=tf.ENCODER_PERIOD)
-        params["enc_norm"] = common.init_rms_norm(cfg.d_model, torch.float32, dev)
+                                          period=tf.ENCODER_PERIOD,
+                                          each=lambda i, p: shard(("encoder", i), p))
+        params["enc_norm"] = shard(("enc_norm",), common.init_rms_norm(
+            cfg.d_model, torch.float32, dev))
     return params
 
 
@@ -76,19 +78,24 @@ def _embed_inputs(params, batch, cfg, plan: ShardingPlan, dist: Dist):
     return x
 
 
-def _encode(params, frames, cfg, plan: ShardingPlan, dist: Dist):
-    """The encoder over frames [B, Se, D] (already embedded: the audio
-    frontend is a stub, as in JAX), in mode "train", then ``enc_norm``."""
+def _encode(params, frames, cfg, plan: ShardingPlan, dist: Dist, param_specs=None):
+    """The encoder over frames [B, Se_loc, D] (already embedded: the audio
+    frontend is a stub, as in JAX), this rank's positions of the sequence
+    axis, in mode "train" (so causal, with RoPE: the JAX function's
+    choice), then ``enc_norm``. `param_specs`: the encoder layers' specs,
+    whose FSDP shards each layer gathers where it runs (``apply_stack``)."""
     x, _ = tf.apply_stack(params["encoder"], frames.to(common.dtype_of(cfg)),
                           cfg, plan, dist, mode="train",
-                          n_layers=cfg.encoder_layers, period=tf.ENCODER_PERIOD)
+                          n_layers=cfg.encoder_layers, period=tf.ENCODER_PERIOD,
+                          param_specs=param_specs)
     return common.rms_norm(x, params["enc_norm"]["scale"], cfg.norm_eps)
 
 
 def train_loss(params, batch, cfg: ModelConfig, plan: Optional[ShardingPlan] = None,
                dist: Optional[Dist] = None, *, remat: bool = True,
                param_specs=None, capacity_groups=None):
-    """batch: tokens [B, S] (+ "patches" or "frames"), this rank's block.
+    """batch: tokens [B, S] (+ "patches", or "frames" [B, S, D]), this
+    rank's block.
     The global-mean LM loss: each position predicts the next token, the
     last position is masked; with experts, plus ``router_aux_loss_coef``
     times the load-balance loss averaged over the layers (and over the
@@ -109,17 +116,17 @@ def train_loss(params, batch, cfg: ModelConfig, plan: Optional[ShardingPlan] = N
     ``moe.moe_ffn`` (default one), to reproduce a sharded run's drops on
     one device."""
     plan, dist = _plan_dist(plan, dist, "train")
-    stack_specs = None
+    stack_specs = enc_specs = None
     if param_specs is not None and plan.fsdp_axis is not None:
         params = dict(params)
         for k in ("embed", "final_norm", "enc_norm"):
             if k in params:
                 params[k] = common.fsdp_gather(params[k], param_specs[k], plan, dist)
-        stack_specs = param_specs["stack"]
+        stack_specs, enc_specs = param_specs["stack"], param_specs.get("encoder")
     x = _embed_inputs(params, batch, cfg, plan, dist)
     enc_out = None
     if cfg.is_encoder_decoder:
-        enc_out = _encode(params, batch["frames"], cfg, plan, dist)
+        enc_out = _encode(params, batch["frames"], cfg, plan, dist, enc_specs)
     x, _, aux = tf.apply_stack(params["stack"], x, cfg, plan, dist, mode="train",
                                collect_aux=True, remat=remat, enc_out=enc_out,
                                param_specs=stack_specs,
@@ -153,8 +160,9 @@ def prefill_logits(params, batch, cfg: ModelConfig,
                    plan: Optional[ShardingPlan] = None,
                    dist: Optional[Dist] = None, *, capacity_groups=None):
     """batch: {"tokens": [B, S]}, with "patches" [B, Pf, D] (vit_patches)
-    or "frames" [B, Se, D] (encoder-decoder). Returns (f32 logits of the
-    last position [B, 1, V_pad], caches). On a sequence-sharded plan the
+    or "frames" [B, Se, D] (encoder-decoder; on a sequence-sharded plan
+    this rank's positions, as the tokens). Returns (f32 logits of the last
+    position [B, 1, V_pad], caches). On a sequence-sharded plan the
     last position lives on the last sequence rank, which broadcasts its
     final hidden state (a psum of it and zeros). `capacity_groups`: the
     MoE capacity groups (``moe.moe_ffn``; default one)."""
@@ -233,7 +241,7 @@ def init_cache(cfg: ModelConfig, plan: Optional[ShardingPlan] = None,
 
     caches = []
     for i, spec in enumerate(cfg.layer_specs):
-        tf.check_supported(spec, cfg, plan)
+        tf.check_supported(spec, cfg)
         if spec.mixer == "mamba":
             mc = cfg.mamba
             di = mc.expand * cfg.d_model

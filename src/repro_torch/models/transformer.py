@@ -29,10 +29,7 @@ from repro_torch.models.layers import moe as moe_mod
 from repro_torch.models.layers import rwkv as rwkv_mod
 from repro_torch.sharding.dist import Dist
 from repro_torch.sharding.plans import ShardingPlan
-from repro_torch.sharding.specs import is_mla
-
-
-ENCODER_PERIOD = (LayerSpec(mixer="attn", ffn="dense"),)
+from repro_torch.sharding.specs import ENCODER_PERIOD, is_mla  # noqa: F401
 
 
 def sharded(plan: Optional[ShardingPlan]) -> bool:
@@ -40,11 +37,11 @@ def sharded(plan: Optional[ShardingPlan]) -> bool:
     return plan is not None and math.prod(plan.mesh_shape) > 1
 
 
-def check_supported(spec: LayerSpec, cfg: ModelConfig,
-                    plan: Optional[ShardingPlan] = None):
-    """Refuse, by name, a layer the port does not run: on one device any
-    GQA or MLA attention, Mamba or RWKV mixer with a dense or MoE FFN;
-    under a sharded plan the same but RWKV, and no encoder-decoder."""
+def check_supported(spec: LayerSpec, cfg: ModelConfig):
+    """Refuse, by name, a layer the port does not run: any GQA or MLA
+    attention, Mamba or RWKV mixer with a dense or MoE FFN, on one device
+    and under a sharded plan, with no frontend, ViT patches, or audio
+    frames into an encoder."""
     attn_ok = spec.mixer in ("attn", "attn_local") and cfg.attn_kind in ("gqa", "mla")
     frontend_ok = cfg.frontend in ("", "vit_patches") or (
         cfg.frontend == "audio_frames" and cfg.is_encoder_decoder)
@@ -54,19 +51,13 @@ def check_supported(spec: LayerSpec, cfg: ModelConfig,
             f"layer {spec} of {cfg.name} is not ported yet (only GQA or MLA "
             "attn, attn_local, mamba and rwkv mixers with dense or moe FFNs; "
             "the vit_patches frontend, or audio frames into an encoder)")
-    if sharded(plan) and (spec.mixer == "rwkv" or cfg.is_encoder_decoder):
-        what = "rwkv" if spec.mixer == "rwkv" else "cross-attention"
-        raise NotImplementedError(
-            f"{what} layers of {cfg.name} under a sharded plan come with the "
-            "sharded mixers (ROADMAP queue 1, item 5c); sharded plans run GQA "
-            "and MLA attention and Mamba with dense or MoE FFNs")
 
 
 def init_layer(spec: LayerSpec, cfg: ModelConfig, plan: ShardingPlan, gen, *,
                cross: bool = False):
     """One layer's params; with `cross`, a cross-attention sublayer
     (``norm_x``, ``cross``) between the mixer and the FFN."""
-    check_supported(spec, cfg, plan)
+    check_supported(spec, cfg)
     dev = gen.device
     params: Dict[str, Any] = {
         "norm1": common.init_rms_norm(cfg.d_model, torch.float32, dev),
@@ -111,7 +102,7 @@ def apply_layer(spec: LayerSpec, p, x, cfg, plan: ShardingPlan, dist: Dist, *,
     does; `capacity_groups` overrides that rule (``moe.moe_ffn``). With
     `collect_aux`, (x, new_cache | None, aux): a MoE layer's load-balance
     loss, 0.0 for any other layer."""
-    check_supported(spec, cfg, plan)
+    check_supported(spec, cfg)
     new_cache: Dict[str, Any] = {}
     aux = 0.0
     window = cfg.sliding_window if spec.mixer == "attn_local" else 0

@@ -72,8 +72,11 @@ def pad_to_capacity(cfg, caches: List[dict], from_seq: int, to_seq: int,
     [r*to_seq/n, (r+1)*to_seq/n) for decode. JAX pads the global array and
     lets the decode sharding cut it again; here that is a re-layout across
     the ranks: an all-gather over the kv axis, the pad, and this rank's
-    slice. MLA's latent leaves (c_kv, k_rope) are replicated over the kv
-    axis in decode: gathered and padded, they are kept whole. Mamba's
+    slice. A cross cache is sharded over the kv axis as the self k, v are,
+    and re-laid out the same way: its zero rows are attended, since decode
+    reads ``enc_len = max_seq`` positions (the JAX engine's rule). MLA's
+    latent leaves (c_kv, k_rope) are replicated over the kv axis in
+    decode: gathered and padded, they are kept whole. Mamba's and RWKV's
     leaves are recurrent and already in their decode layout."""
     if to_seq < from_seq:
         raise ValueError(f"capacity {to_seq} < prefill length {from_seq}")
@@ -87,10 +90,6 @@ def pad_to_capacity(cfg, caches: List[dict], from_seq: int, to_seq: int,
         if cls == "recurrent" or x.shape[dim] != from_seq // n:
             return x
         if n > 1:
-            if g == "cross":
-                raise NotImplementedError(
-                    "a sequence-sharded cross cache comes with the sharded "
-                    "mixers (ROADMAP queue 1, item 5c)")
             x = dist.all_gather(x, plan.kv_axis, dim=dim)
         widths = [0, 0] * (x.dim() - dim - 1) + [0, to_seq - from_seq]
         x = F.pad(x, widths)

@@ -8,13 +8,13 @@ dict per layer in a list, not period-stacked. ``P`` holds one entry per
 dim: None, an axis name, or a tuple of names (a 1-tuple is stored as its
 name, as JAX stores it).
 
-Covered: the GQA attention, MLA, Mamba, dense and MoE FFN, embedding and
-norm leaves of serving and training plans, and the GQA, MLA and Mamba
-caches. A training plan with ``fsdp_axis`` extends each leaf's spec by
-``common.fsdp_spec`` (JAX's ``init_layer`` / ``init_model`` do it leaf by
-leaf, from the global shapes that ``param_shapes`` gives here). RWKV and
-cross-attention under a sharded plan come with the rest of the sharded
-mixers (ROADMAP queue 1, item 5c).
+Covered: every layer the port runs (GQA attention, MLA, Mamba, RWKV's
+time and channel mix, dense and MoE FFN, cross-attention), the encoder
+stack, embedding and norm leaves of serving and training plans, and every
+cache (GQA, MLA, Mamba, RWKV, the encoder's cross k, v). A training plan
+with ``fsdp_axis`` extends each leaf's spec by ``common.fsdp_spec`` (JAX's
+``init_layer`` / ``init_model`` do it leaf by leaf, from the global shapes
+that ``param_shapes`` gives here).
 """
 from __future__ import annotations
 
@@ -47,15 +47,8 @@ def replicated(ndim: int) -> P:
     return P(*([None] * ndim))
 
 
-def _refuse_sharded_mixer(spec: LayerSpec, cfg: ModelConfig):
-    if spec.mixer == "rwkv":
-        raise NotImplementedError(
-            f"sharded rwkv layers of {cfg.name} come with the sharded mixers "
-            "(ROADMAP queue 1, item 5c)")
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            "cross-attention under a sharded plan comes with the sharded "
-            "mixers (ROADMAP queue 1, item 5c)")
+# the encoder's layer (JAX ``model.init_model``'s ``enc_period``)
+ENCODER_PERIOD = (LayerSpec(mixer="attn", ffn="dense"),)
 
 
 def is_mla(spec: LayerSpec, cfg: ModelConfig) -> bool:
@@ -98,9 +91,29 @@ def mamba_specs(plan: ShardingPlan) -> dict:
             "d_skip": P(tp), "w_out": P(tp, None)}
 
 
+def rwkv_tm_specs(plan: ShardingPlan) -> dict:
+    """The WKV heads over tp: ``w_r``, ``w_k``, ``w_v``, ``w_g`` and
+    ``decay_lora_b`` by column, ``decay_base`` and ``bonus`` by channel,
+    ``w_o`` by row; the mixes and ``decay_lora_a`` replicated (JAX's
+    ``init_rwkv_tm``)."""
+    tp = plan.tp_axis
+    return {"mix": replicated(2), "w_r": P(None, tp), "w_k": P(None, tp),
+            "w_v": P(None, tp), "w_g": P(None, tp), "decay_lora_a": replicated(2),
+            "decay_lora_b": P(None, tp), "decay_base": P(tp), "bonus": P(tp),
+            "w_o": P(tp, None)}
+
+
+def rwkv_cm_specs(plan: ShardingPlan) -> dict:
+    """d_ff over tp (JAX's ``init_rwkv_cm``)."""
+    return {"mix": P(None), "w_in": P(None, plan.tp_axis),
+            "w_out": P(plan.tp_axis, None)}
+
+
 def mixer_specs(spec: LayerSpec, cfg: ModelConfig, plan: ShardingPlan) -> dict:
     if spec.mixer == "mamba":
         return mamba_specs(plan)
+    if spec.mixer == "rwkv":
+        return rwkv_tm_specs(plan)
     if is_mla(spec, cfg):
         return mla_specs(cfg)
     return attention_specs(plan)
@@ -122,11 +135,21 @@ def moe_specs(cfg: ModelConfig, plan: ShardingPlan) -> dict:
     return specs
 
 
-def layer_specs(spec: LayerSpec, cfg: ModelConfig, plan: ShardingPlan) -> dict:
-    _refuse_sharded_mixer(spec, cfg)
-    ffn = dense_ffn_specs(plan) if spec.ffn == "dense" else moe_specs(cfg, plan)
-    return {"norm1": norm_specs(), "mixer": mixer_specs(spec, cfg, plan),
-            "norm2": norm_specs(), "ffn": ffn}
+def layer_specs(spec: LayerSpec, cfg: ModelConfig, plan: ShardingPlan, *,
+                cross: bool = False) -> dict:
+    """One layer's specs; with `cross`, its cross-attention sublayer
+    (``norm_x``, and ``cross`` sharded as the self-attention weights)."""
+    if spec.mixer == "rwkv":
+        ffn = rwkv_cm_specs(plan)
+    elif spec.ffn == "dense":
+        ffn = dense_ffn_specs(plan)
+    else:
+        ffn = moe_specs(cfg, plan)
+    out = {"norm1": norm_specs(), "mixer": mixer_specs(spec, cfg, plan)}
+    if cross:
+        out.update(norm_x=norm_specs(), cross=attention_specs(plan))
+    out.update(norm2=norm_specs(), ffn=ffn)
+    return out
 
 
 def param_shapes(cfg: ModelConfig, plan: ShardingPlan) -> dict:
@@ -139,17 +162,17 @@ def param_shapes(cfg: ModelConfig, plan: ShardingPlan) -> dict:
     hh = cfg.num_heads * hd
     attn = {"w_q": (d, hh), "w_k": (d, cfg.num_kv_heads, hd),
             "w_v": (d, cfg.num_kv_heads, hd), "w_o": (hh, d)}
-    stack = []
-    for spec in cfg.layer_specs:
-        _refuse_sharded_mixer(spec, cfg)
-        mixer = attn
+    dense = {"w_gate": (d, cfg.d_ff), "w_up": (d, cfg.d_ff), "w_out": (cfg.d_ff, d)}
+
+    def layer(spec, cross):
+        mixer, ffn = attn, dense
         if spec.mixer == "mamba":
             mixer = _mamba_shapes(cfg)
+        elif spec.mixer == "rwkv":
+            mixer, ffn = _rwkv_shapes(cfg)
         elif is_mla(spec, cfg):
             mixer = _mla_shapes(cfg)
-        if spec.ffn == "dense":
-            ffn = {"w_gate": (d, cfg.d_ff), "w_up": (d, cfg.d_ff), "w_out": (cfg.d_ff, d)}
-        else:
+        if spec.ffn == "moe" and spec.mixer != "rwkv":
             m = cfg.moe
             e, de = m.padded_num_experts(max(plan.ep, 1)), m.d_expert
             ffn = {"router": (d, e), "w_gate": (e, d, de), "w_up": (e, d, de),
@@ -158,9 +181,35 @@ def param_shapes(cfg: ModelConfig, plan: ShardingPlan) -> dict:
                 dsh = m.d_shared_expert * m.num_shared_experts
                 ffn.update(w_shared_gate=(d, dsh), w_shared_up=(d, dsh),
                            w_shared_down=(dsh, d))
-        stack.append({"norm1": {"scale": (d,)}, "mixer": dict(mixer),
-                      "norm2": {"scale": (d,)}, "ffn": ffn})
-    return {"embed": embed, "stack": stack, "final_norm": {"scale": (d,)}}
+        out = {"norm1": {"scale": (d,)}, "mixer": dict(mixer)}
+        if cross:
+            out.update(norm_x={"scale": (d,)}, cross=dict(attn))
+        out.update(norm2={"scale": (d,)}, ffn=dict(ffn))
+        return out
+
+    cross = cfg.is_encoder_decoder
+    out = {"embed": embed, "stack": [layer(s, cross) for s in cfg.layer_specs],
+           "final_norm": {"scale": (d,)}}
+    if cross:
+        out["encoder"] = [layer(s, False) for s in encoder_specs(cfg)]
+        out["enc_norm"] = {"scale": (d,)}
+    return out
+
+
+def encoder_specs(cfg: ModelConfig) -> tuple:
+    """The layer specs of the encoder stack: ``cfg.encoder_layers`` of
+    ``ENCODER_PERIOD``."""
+    return ENCODER_PERIOD * cfg.encoder_layers
+
+
+def _rwkv_shapes(cfg: ModelConfig):
+    """(time-mix shapes, channel-mix shapes) of an RWKV layer."""
+    d, dff = cfg.d_model, cfg.d_ff
+    lora = max(32, d // 64)
+    tm = {"mix": (4, d), "w_r": (d, d), "w_k": (d, d), "w_v": (d, d), "w_g": (d, d),
+          "decay_lora_a": (d, lora), "decay_lora_b": (lora, d), "decay_base": (d,),
+          "bonus": (d,), "w_o": (d, d)}
+    return tm, {"mix": (d,), "w_in": (d, dff), "w_out": (dff, d)}
 
 
 def _mla_shapes(cfg: ModelConfig) -> dict:
@@ -184,9 +233,13 @@ def param_specs(cfg: ModelConfig, plan: ShardingPlan) -> dict:
     """The spec tree of ``models.model.init_model``'s params under `plan`:
     JAX's ``abstract_model(cfg, plan)[1]`` with the stack unstacked, FSDP
     included."""
+    cross = cfg.is_encoder_decoder
     specs = {"embed": embedding_specs(cfg, plan),
-             "stack": [layer_specs(s, cfg, plan) for s in cfg.layer_specs],
+             "stack": [layer_specs(s, cfg, plan, cross=cross) for s in cfg.layer_specs],
              "final_norm": norm_specs()}
+    if cross:
+        specs["encoder"] = [layer_specs(s, cfg, plan) for s in encoder_specs(cfg)]
+        specs["enc_norm"] = norm_specs()
     if plan.fsdp_axis is None:
         return specs
     from repro_torch.models.layers.common import fsdp_spec
@@ -215,32 +268,39 @@ def cache_specs(cfg: ModelConfig, plan: ShardingPlan, batch: int = 0,
     so that its sharded prefill keeps one rank's positions
     (ROADMAP queue 3)."""
     bax, tp = plan.batch_axes, plan.tp_axis
+    kv = P(bax, None, plan.kv_axis, None)
     out = []
     for spec in cfg.layer_specs:
-        _refuse_sharded_mixer(spec, cfg)
         if spec.mixer == "mamba":
-            out.append({"mixer": {"conv": P(bax, None, tp), "ssm": P(bax, tp, None)}})
-            continue
-        if is_mla(spec, cfg):
+            layer = {"mixer": {"conv": P(bax, None, tp), "ssm": P(bax, tp, None)}}
+        elif spec.mixer == "rwkv":
+            layer = {"mixer": {"wkv": P(bax, tp, None, None), "shift": P(bax, None)},
+                     "ffn": {"shift": P(bax, None)}}
+        elif is_mla(spec, cfg):
             s = P(bax, plan.kv_axis if plan.kind == "prefill" else None, None)
-            out.append({"mixer": {"c_kv": s, "k_rope": s}})
-            continue
-        if spec.mixer == "attn_local" and cfg.sliding_window:
+            layer = {"mixer": {"c_kv": s, "k_rope": s}}
+        elif spec.mixer == "attn_local" and cfg.sliding_window:
             s = P(bax, None, None, None)
+            layer = {"mixer": {"k": s, "v": s}}
         else:
-            s = P(bax, None, plan.kv_axis, None)
-        out.append({"mixer": {"k": s, "v": s}})
+            layer = {"mixer": {"k": kv, "v": kv}}
+        if cfg.is_encoder_decoder:
+            layer["cross"] = {"k": kv, "v": kv}
+        out.append(layer)
     return out
 
 
 def batch_specs(cfg: ModelConfig, kind: str, plan: ShardingPlan) -> Dict[str, P]:
     """Specs of one step's inputs: prefill tokens [B, S] over (batch axes,
     sequence axis); decode tokens [B, 1] over the batch axes; ViT patches
-    [B, Pf, D] over the batch axes."""
+    [B, Pf, D] over the batch axes; audio frames [B, S, D] over (batch
+    axes, sequence axis), as the tokens (JAX's ``batch_struct``)."""
     if kind in ("train", "prefill"):
         specs = {"tokens": P(plan.batch_axes, plan.seq_axis)}
         if cfg.frontend == "vit_patches":
             specs["patches"] = P(plan.batch_axes, None, None)
+        if cfg.frontend == "audio_frames":
+            specs["frames"] = P(plan.batch_axes, plan.seq_axis, None)
         return specs
     return {"tokens": P(plan.batch_axes, None)}
 

@@ -2,7 +2,8 @@
 plain version (``ref.flash_decode_lse_ref``, the port's
 ``attn_chunk_lse``) on the card (``cuda`` marker; skipped without one):
 per-row lengths around the split boundaries, a shard with nothing to
-attend to (o = 0, l = 0, m = -1e30, as the reference), and the merge of
+attend to (o = 0, l = 0, m = -1e30, as the reference), seamless's self-
+and cross-attention shard shapes on the 2x2 mesh, and the merge of
 two shards through ``lse_combine`` over a two-rank KV axis against the
 normalised kernel over the whole cache; and every collective of the ``Dist`` on CUDA tensors, over
 gloo (four ranks on one card) and, with four cards, over nccl, against the
@@ -50,7 +51,33 @@ def test_lse_form_matches_plain(cuda, dtype, h, kh, hd, s):
     past S (clamped, as the sharded decode's lengths never are)."""
     lens = [0, 1, 63, 64, 65, s - 1, s, s + 7]
     q, k, v = (t.to(dtype) for t in qkv(h + s, len(lens), h, kh, s, hd, cuda))
-    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    o, m, l, pm = _check_lse(q, k, v, torch.tensor(lens, dtype=torch.int32, device=cuda))
+    # the empty shard: exactly the reference's values
+    assert (f32(o[0]) == 0).all() and (f32(l[0]) == 0).all()
+    assert (f32(m[0]) == NEG_INF).all() and (f32(pm[0]) == NEG_INF).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lens", [[65, 70, 75, 80], [0, 0, 0, 0], [256] * 4],
+                         ids=["self", "self_empty_shard", "cross"])
+def test_lse_form_at_seamless_shard_shapes(cuda, dtype, lens):
+    """seamless-m4t-medium's two shard shapes on the 2x2 mesh (8 prompts of
+    64, 16 new tokens, max_seq 512): a rank's 4 rows, all 16 heads (q
+    gathered over model) over 16 KV heads of 64, 256 cache positions.
+    Self-attention: model rank 0 holds the decode's positions (lengths
+    65-80), rank 1 none; cross-attention: every row of the zero-padded
+    encoder cache is attended (``enc_len = max_seq``)."""
+    q, k, v = (t.to(dtype) for t in qkv(sum(lens) + 7, 4, 16, 16, 256, 64, cuda))
+    _check_lse(q, k, v, torch.tensor(lens, dtype=torch.int32, device=cuda))
+
+
+def _check_lse(q, k, v, lengths):
+    """One ``flash_decode_lse_cuda`` launch (counted) against the plain
+    version at the lengths clamped to S: f32 o, m, l within 1e-4; bf16 m
+    within 1e-4 and the normalised output as close to the f32 truth as
+    the plain bf16 version, 1.5x + 1e-3. Returns (o, m, l) and the plain
+    version's m."""
+    s = k.shape[2]
     n0 = tfd.lse_launches
     o, m, l = tfd.flash_decode_lse_cuda(q, k, v, lengths)
     torch.cuda.synchronize()
@@ -58,25 +85,21 @@ def test_lse_form_matches_plain(cuda, dtype, h, kh, hd, s):
     assert o.dtype == m.dtype == l.dtype == torch.float32
     clamped = lengths.clamp(max=s)
     po, pm, pl = ref.flash_decode_lse_ref(q, k, v, clamped)
-    # the empty shard: exactly the reference's values
-    assert (f32(o[0]) == 0).all() and (f32(l[0]) == 0).all()
-    assert (f32(m[0]) == NEG_INF).all() and (f32(pm[0]) == NEG_INF).all()
     # m is the max score: the same to f32 rounding in both types
     np.testing.assert_allclose(f32(m), f32(pm), atol=1e-4, rtol=1e-4)
-    if dtype == torch.float32:
+    if q.dtype == torch.float32:
         for got, want in ((o, po), (l, pl)):
             np.testing.assert_allclose(f32(got), f32(want), atol=1e-4, rtol=1e-4)
-        return
-    # bf16: the normalised output as close to the f32 truth as the plain
-    # bf16 version, 1.5x + 1e-3
+        return o, m, l, pm
     to, tm, tl = ref.flash_decode_lse_ref(q.float(), k.float(), v.float(), clamped)
     live = clamped > 0
-
-    def norm(o_, l_):
-        return f32(o_[live] / l_[live][..., None])
-    truth = norm(to, tl)
-    err_plain = np.abs(norm(po, pl) - truth).max()
-    assert np.abs(norm(o, l) - truth).max() <= 1.5 * err_plain + 1e-3
+    if live.any():
+        def norm(o_, l_):
+            return f32(o_[live] / l_[live][..., None])
+        truth = norm(to, tl)
+        err_plain = np.abs(norm(po, pl) - truth).max()
+        assert np.abs(norm(o, l) - truth).max() <= 1.5 * err_plain + 1e-3
+    return o, m, l, pm
 
 
 class StackedRanks:

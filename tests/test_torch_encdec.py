@@ -6,7 +6,6 @@ mode "train"), the model's params, caches, prefill and decode logits, the
 engine's zero-padded cross cache (decode attends over ``max_seq`` encoder
 positions, the zero rows past the prompt included, as the JAX engine
 does) and the engine token for token against the JAX engine."""
-import dataclasses
 
 import pytest
 
@@ -34,7 +33,7 @@ from repro_torch.models.layers import attention as TA  # noqa: E402
 from repro_torch.models.layers import common as TC  # noqa: E402
 from repro_torch.serving import kvcache  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
-from repro_torch.sharding.dist import Dist, NullDist  # noqa: E402
+from repro_torch.sharding.dist import NullDist  # noqa: E402
 from repro_torch.sharding.plans import null_plan  # noqa: E402
 
 ARCH = "seamless-m4t-medium"
@@ -125,17 +124,48 @@ def test_cross_attention_decode_matches_jax(enc_len):
 
 
 def test_cross_attention_refuses_sharding_and_no_length():
-    _, tcfg, _, tp = models()
-    tc = tp["stack"][0]["cross"]
-    x = torch.from_numpy(rand(0, 1, 1, 64))
-    kv = {n: torch.zeros((1, 4, 8, 16)) for n in "kv"}
-    head_tp = dataclasses.replace(PLAN, attn_mode="head_tp", tp_axis="model")
-    with pytest.raises(NotImplementedError):
-        TA.cross_attention_decode(tc, x, kv, 8, tcfg, head_tp, Dist({"model": 2}))
-    with pytest.raises(NotImplementedError):
-        TA.cross_attention_fwd(tc, x, kv, tcfg, head_tp, Dist({"model": 2}))
+    """Cross-attention under head-TP and over a sharded encoder cache no
+    longer refuses (item 5c-ii): the cross specs on a (1, 2) ("data",
+    "model") plan equal JAX's ``init_attention(cross=True)`` specs, and the
+    sharded call runs: two gloo ranks (head-TP, the encoder positions over
+    model) give JAX's single-device ``cross_attention_fwd`` and, over a
+    cache whose 16 positions split 8 and 8, ``cross_attention_decode`` at
+    enc_len 11 within 1e-5. A decode over no encoder position still
+    raises ValueError."""
+    from repro.configs.base import ShapeCell as JShapeCell
+    from repro.sharding.plans import make_plan as jax_make_plan
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import serve
+    from repro_torch.sharding import specs as SP
+    from repro_torch.sharding.plans import make_plan
+    jcfg, tcfg, jp, tp = models()
+    jc, tc = cross0(jp, tp)
+    cell = dict(seq_len=8, global_batch=2, kind="prefill")
+    jplan = jax_make_plan(jcfg, JShapeCell("p", **cell), ("data", "model"), (1, 2))
+    plan = make_plan(tcfg, ShapeCell("p", **cell), ("data", "model"), (1, 2))
+    assert plan.attn_mode == "head_tp"
+    want = JA.init_attention(jcfg, jplan, jax.random.PRNGKey(0), cross=True)[1]
+    assert {k: tuple(v) for k, v in SP.attention_specs(plan).items()} == \
+        {k: tuple(v) for k, v in want.items()}
+    x, enc, xt = rand(0, 2, 8, 64), rand(1, 2, 8, 64), rand(2, 2, 1, 64)
+    kv = {n: np.asarray(a) for n, a in JA.make_enc_cache(
+        jc, jnp.asarray(rand(3, 2, 16, 64)), jcfg, JPLAN, JDIST).items()}
+    got = serve.spawn(__import__("torch_encdec_workers").sharded_calls,
+                      (dict(kind="cross", cfg=tcfg, params=tc, x=x, enc=enc, kv=kv, xt=xt,
+                            enc_len=11),), mesh_shape=(1, 2), transport="gloo",
+                      device="cpu", timeout=120)[0]
+    jplan1 = jax_null_plan("prefill")
+    want_fwd = JA.cross_attention_fwd(jc, jnp.asarray(x), JA.make_enc_cache(
+        jc, jnp.asarray(enc), jcfg, jplan1, JDIST), jcfg, jplan1, JDIST)
+    np.testing.assert_allclose(got["fwd"], np.asarray(want_fwd), **CACHE_TOL)
+    want_dec = JA.cross_attention_decode(jc, jnp.asarray(xt), {n: jnp.asarray(a)
+                                                               for n, a in kv.items()},
+                                         11, jcfg, JPLAN, JDIST)
+    np.testing.assert_allclose(got["decode"], np.asarray(want_dec), **CACHE_TOL)
     with pytest.raises(ValueError):
-        TA.cross_attention_decode(tc, x, kv, 0, tcfg, PLAN, DIST)
+        TA.cross_attention_decode(tc, torch.from_numpy(xt[:1]),
+                                  {n: torch.zeros((1, 4, 8, 16)) for n in "kv"}, 0, tcfg,
+                                  PLAN, DIST)
 
 
 # ---------------------------------------------------------------------------

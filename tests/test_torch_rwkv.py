@@ -7,7 +7,6 @@ classes (the first layer with an "ffn" cache group), logits, the engine
 token for token against the JAX engine, and speculative decoding rolling
 the matrix state and both token shifts back (rwkv6 is one of the JAX
 ``ARCHS_STATEFUL`` of ``tests/test_serving.py``)."""
-import dataclasses
 
 import pytest
 
@@ -36,7 +35,7 @@ from repro_torch.models.layers import rwkv as TR  # noqa: E402
 from repro_torch.serving import kvcache  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
 from repro_torch.serving.specdec import SDDecoder  # noqa: E402
-from repro_torch.sharding.dist import Dist, NullDist  # noqa: E402
+from repro_torch.sharding.dist import NullDist  # noqa: E402
 from repro_torch.sharding.plans import null_plan  # noqa: E402
 
 ARCH = "rwkv6-1.6b"
@@ -243,13 +242,37 @@ def test_prefill_then_decode_equals_one_forward(split):
 
 
 def test_rwkv_refuses_sharding():
-    _, tcfg, _, tp = models()
-    plan = dataclasses.replace(null_plan("prefill"), tp_axis="model")
-    x = torch.from_numpy(rand(0, 1, 4, tcfg.d_model))
-    with pytest.raises(NotImplementedError):
-        TR.rwkv_tm_fwd(tp["stack"][0]["mixer"], x, tcfg, plan, Dist({"model": 2}))
-    with pytest.raises(NotImplementedError):
-        TR.rwkv_cm_fwd(tp["stack"][0]["ffn"], x, plan, Dist({"model": 2}))
+    """The sharded RWKV layer no longer refuses (item 5c-ii): at d_model 128
+    (two WKV heads of 64), the port's time- and channel-mix specs on a
+    (1, 2) ("data", "model") prefill plan equal JAX's ``init_rwkv_tm`` /
+    ``init_rwkv_cm`` specs, and the sharded call runs: two gloo ranks, one
+    head each, the sequence over model, give JAX's single-device time and
+    channel mix within 1e-5 (``test_torch_sharded_rwkv_encdec.py`` holds
+    the rest: caches, decode, gradients, the 2x2 mesh)."""
+    from repro.configs.base import ShapeCell as JShapeCell
+    from repro.sharding.plans import make_plan as jax_make_plan
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import serve
+    from repro_torch.sharding import specs as SP
+    from repro_torch.sharding.plans import make_plan
+    jcfg, tcfg, jp, tp = models(d_model=128)
+    jl, tl = layer0(jp, tp)
+    cell = dict(seq_len=8, global_batch=2, kind="prefill")
+    jplan = jax_make_plan(jcfg, JShapeCell("p", **cell), ("data", "model"), (1, 2))
+    plan = make_plan(tcfg, ShapeCell("p", **cell), ("data", "model"), (1, 2))
+    for init, specs in ((JR.init_rwkv_tm, SP.rwkv_tm_specs(plan)),
+                        (JR.init_rwkv_cm, SP.rwkv_cm_specs(plan))):
+        want = init(jcfg, jplan, jax.random.PRNGKey(0))[1]
+        assert {k: tuple(v) for k, v in specs.items()} == {k: tuple(v) for k, v in want.items()}
+    x = rand(0, 2, 8, tcfg.d_model)
+    got = serve.spawn(__import__("torch_encdec_workers").sharded_calls,
+                      (dict(kind="rwkv", cfg=tcfg, params=tl, x=x),), mesh_shape=(1, 2),
+                      transport="gloo", device="cpu", timeout=120)[0]
+    plan1 = jax_null_plan("prefill")
+    np.testing.assert_allclose(got["tm"], np.asarray(JR.rwkv_tm_fwd(
+        jl["mixer"], jnp.asarray(x), jcfg, plan1, JDIST)[0]), **CACHE_TOL)
+    np.testing.assert_allclose(got["cm"], np.asarray(JR.rwkv_cm_fwd(
+        jl["ffn"], jnp.asarray(x), plan1, JDIST)[0]), **CACHE_TOL)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,9 @@ four gloo ranks on the CPU as a 2x2 ("data", "model") mesh stand in for
 the reference's ``--xla_force_host_platform_device_count``.
 
 - The port's spec trees equal ``abstract_model`` / ``abstract_cache``'s
-  (olmoe and gemma3, prefill and decode at (2, 2); deepseek-67b's ffn_2d).
+  (olmoe, gemma3, deepseek-v3, jamba, rwkv6 and seamless with its encoder,
+  prefill and decode at (2, 2); deepseek-67b's ffn_2d); reduced rwkv6 and
+  seamless serve on the mesh as on one device.
 - Mirrors of ``test_decode_step_matches_single_device`` (olmoe, gemma3)
   and ``test_ffn_2d_decode_matches_baseline`` (deepseek-67b): the port's
   4-rank decode against the JAX single-device logits on converted
@@ -24,6 +26,7 @@ the reference's ``--xla_force_host_platform_device_count``.
 - The expert move between the prefill and decode layouts, and the
   launcher ``python -m repro_torch.launch.serve --device cpu``.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -41,6 +44,7 @@ from jax.sharding import PartitionSpec as JP  # noqa: E402
 
 from repro.configs import get_arch as jax_arch  # noqa: E402
 from repro.configs import reduced_config as jax_reduced  # noqa: E402
+from repro.configs.base import LayerSpec as JLayerSpec  # noqa: E402
 from repro.configs.base import ShapeCell as JShapeCell  # noqa: E402
 from repro.launch import steps as JS  # noqa: E402
 from repro.models import model as JM  # noqa: E402
@@ -70,13 +74,20 @@ SERVE_STEPS = 5
 ARCH_KW = {"olmoe-1b-7b": dict(num_heads=4, num_kv_heads=2),
            "gemma3-1b": dict(num_heads=4, num_kv_heads=2),
            "deepseek-67b": dict(num_heads=4, num_kv_heads=2, d_ff=128),
-           "deepseek-v3": {}, "jamba-v0.1-52b": {}}
+           "deepseek-v3": {}, "jamba-v0.1-52b": {}, "rwkv6-1.6b": {},
+           "seamless-m4t-medium": {}}
 
 
 def configs(arch, dtype=None):
+    """(JAX config, port config), reduced; rwkv6's WKV heads 16 wide, as a
+    reduced launcher job's (one head of 64 does not split over model)."""
     kw = dict(ARCH_KW[arch], **({"dtype": dtype} if dtype else {}))
-    return jax_reduced(jax_arch(arch)).replace(**kw), \
-        reduced_config(get_arch(arch)).replace(**kw)
+    j, t = jax_reduced(jax_arch(arch)).replace(**kw), reduced_config(get_arch(arch)).replace(**kw)
+    if arch == "rwkv6-1.6b":
+        hd = serve.REDUCED_RWKV_HEAD_DIM
+        j = j.replace(rwkv=dataclasses.replace(j.rwkv, head_dim=hd))
+        t = t.replace(rwkv=dataclasses.replace(t.rwkv, head_dim=hd))
+    return j, t
 
 
 def weights(jcfg, tcfg):
@@ -178,6 +189,20 @@ def _jobs():
                                                    batch=B, seq=CAP, tokens=tok, pos=0,
                                                    plan_kw=kw)
     refs["decode/deepseek-67b"] = dict(jax=jax_decode_logits(jp, jcfg, tok))
+    # the mixers of item 5c-ii, served from the port's own weights
+    for arch in ("rwkv6-1.6b", "seamless-m4t-medium"):
+        _, tcfg = configs(arch, "float32")
+        tp = M.init_model(tcfg, None, seed=0, device="cpu")
+        ptok = prompt_tokens(tcfg)
+        feed = np.random.default_rng(4).integers(1, tcfg.vocab_size,
+                                                 (B, SERVE_STEPS)).astype(np.int32)
+        name = f"serve/{arch}/float32"
+        jobs[name] = dict(kind="serve", cfg=tcfg, params=tp, batch=B, seq=PROMPT,
+                          to_seq=CAP, tokens=ptok, feed=feed)
+        refs[name] = dict(tp=tp, tcfg=tcfg, tok=ptok, feed=feed)
+        if tcfg.is_encoder_decoder:
+            jobs[name]["frames"] = refs[name]["frames"] = serve.frames(
+                tcfg.d_model, B, PROMPT, 0)
     return jobs, refs
 
 
@@ -203,6 +228,18 @@ def _unstack_specs(tree, jcfg):
     return [per[i % len(per)] for i in range(n_per * len(per))] + list(tree["rem"])
 
 
+def _jax_param_specs(jcfg, jplan):
+    """``abstract_model``'s spec tree with the decoder and encoder stacks
+    unstacked."""
+    jspecs = JS.abstract_model(jcfg, jplan)[1]
+    out = dict(jspecs, stack=_unstack_specs(jspecs["stack"], jcfg))
+    if "encoder" in jspecs:
+        enc = jcfg.replace(num_layers=jcfg.encoder_layers,
+                           period=(JLayerSpec(mixer="attn", ffn="dense"),))
+        out["encoder"] = _unstack_specs(jspecs["encoder"], enc)
+    return out
+
+
 def _same_tree(port, jx):
     if isinstance(port, SP.P):
         assert tuple(port) == tuple(jx), (port, jx)
@@ -222,7 +259,9 @@ def _same_tree(port, jx):
     ("gemma3-1b", "prefill", {}), ("gemma3-1b", "decode", {}),
     ("deepseek-67b", "decode", {"ffn_2d": True}),
     ("deepseek-v3", "prefill", {}), ("deepseek-v3", "decode", {}),
-    ("jamba-v0.1-52b", "prefill", {}), ("jamba-v0.1-52b", "decode", {})])
+    ("jamba-v0.1-52b", "prefill", {}), ("jamba-v0.1-52b", "decode", {}),
+    ("rwkv6-1.6b", "prefill", {}), ("rwkv6-1.6b", "decode", {}),
+    ("seamless-m4t-medium", "prefill", {}), ("seamless-m4t-medium", "decode", {})])
 def test_spec_trees_match_jax(arch, kind, kw):
     """The port's param and cache spec trees against ``abstract_model`` and
     ``abstract_cache``, leaf for leaf. One departure: a prefill plan's MLA
@@ -237,9 +276,7 @@ def test_spec_trees_match_jax(arch, kind, kw):
     assert repr(jplan) == repr(tplan)
     if kw.get("ffn_2d"):
         assert tplan.ffn_2d
-    jspecs = JS.abstract_model(jcfg, jplan)[1]
-    jspecs = dict(jspecs, stack=_unstack_specs(jspecs["stack"], jcfg))
-    _same_tree(SP.param_specs(tcfg, tplan), jspecs)
+    _same_tree(SP.param_specs(tcfg, tplan), _jax_param_specs(jcfg, jplan))
     jc = _unstack_specs(JS.abstract_cache(jcfg, jplan, B, seq)[1], jcfg)
     if tcfg.attn_kind == "mla" and kind == "prefill":
         assert all(tuple(la["mixer"]["c_kv"])[1:] == (None, None) for la in jc)
@@ -248,21 +285,43 @@ def test_spec_trees_match_jax(arch, kind, kw):
     _same_tree(SP.cache_specs(tcfg, tplan, B, seq), jc)
 
 
-def test_specs_refuse_what_this_slice_does_not_shard():
-    """What still raises is item 5c's second part: RWKV and cross-attention
-    under a sharded plan, in serving and in training (the spec trees, and
-    the train step that builds them). Training across ranks (item 5b) and
-    MLA and Mamba (item 5c-i) no longer raise."""
+def test_specs_refuse_what_this_slice_does_not_shard(runs):
+    """Nothing the port runs is refused under a sharded plan any more (the
+    RWKV and cross-attention refusals of item 5c went with its second
+    part): rwkv6 and seamless get JAX's spec trees in decode and in
+    training with FSDP (the encoder's layers and ``enc_norm`` among them),
+    ``build_cell`` gives their train step, as it gives olmoe's,
+    deepseek-v3's and jamba's; and the sharded call runs: prefill of
+    PROMPT tokens (seamless: and frames), the caches re-laid out for CAP,
+    and SERVE_STEPS decode steps on the 2x2 mesh give the port's
+    single-device logits within 1e-4 (f32)."""
     for arch in ("rwkv6-1.6b", "seamless-m4t-medium"):
-        cfg = reduced_config(get_arch(arch))
-        for cell in (ShapeCell("d", CAP, B, "decode"), ShapeCell("t", 32, B, "train")):
-            plan = make_plan(cfg, cell, AXES, SHAPE)
-            with pytest.raises(NotImplementedError, match="item 5c"):
-                SP.param_specs(cfg, plan)
-        with pytest.raises(NotImplementedError, match="item 5c"):
-            steps.build_cell(cfg, ShapeCell("t", 32, B, "train"), MESH, transport="gloo")
-    for arch in ("olmoe-1b-7b", "deepseek-v3", "jamba-v0.1-52b"):
-        cfg = reduced_config(get_arch(arch))
+        jcfg, cfg = configs(arch)
+        for kind, seq in (("decode", CAP), ("train", 32)):
+            jplan = jax_make_plan(jcfg, JShapeCell("c", seq, B, kind), AXES, SHAPE)
+            plan = make_plan(cfg, ShapeCell("c", seq, B, kind), AXES, SHAPE)
+            assert repr(jplan) == repr(plan)
+            _same_tree(SP.param_specs(cfg, plan), _jax_param_specs(jcfg, jplan))
+        out, refs = runs
+        ref = refs[f"serve/{arch}/float32"]
+        batch = {"tokens": torch.from_numpy(ref["tok"])}
+        if "frames" in ref:
+            batch["frames"] = torch.from_numpy(ref["frames"])
+        enc_len = CAP if ref["tcfg"].is_encoder_decoder else 0
+        with torch.no_grad():
+            _, caches = M.prefill(ref["tp"], batch, ref["tcfg"])
+            caches = kvcache.pad_to_capacity(ref["tcfg"], caches, PROMPT, CAP)
+            want = []
+            for i in range(SERVE_STEPS):
+                lg, caches = M.decode_logits(ref["tp"], caches,
+                                             torch.from_numpy(ref["feed"][:, i:i + 1]),
+                                             PROMPT + i, ref["tcfg"], enc_len=enc_len)
+                want.append(lg[:, 0].numpy())
+        got = out[f"serve/{arch}/float32"][0]["logits"]
+        np.testing.assert_allclose(got, np.stack(want), atol=1e-4, rtol=1e-4)
+    for arch in ("olmoe-1b-7b", "deepseek-v3", "jamba-v0.1-52b", "rwkv6-1.6b",
+                 "seamless-m4t-medium"):
+        cfg = configs(arch)[1]
         step, plan = steps.build_cell(cfg, ShapeCell("t", 32, B, "train"), MESH,
                                       transport="gloo")
         assert plan.fsdp_axis == "data" and isinstance(step, steps.TrainStep)

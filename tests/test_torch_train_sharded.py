@@ -15,7 +15,9 @@ spawn for the module), reduced configs in f32.
   Its jamba case runs the sharded Mamba mixer (and the reduced
   deepseek-v3 the sequence-sharded MLA), FSDP off and on, held the same
   way: the reference test's own jamba case passes at ``rel=2e-2`` while
-  its sharded Mamba misses its single device (ROADMAP queue 3).
+  its sharded Mamba misses its single device (ROADMAP queue 3). The
+  reduced rwkv6 (4 WKV heads of 16) and seamless (the encoder on
+  sequence-sharded frames, cross-attention) too, FSDP off and on.
 - ``test_perf_knobs.py::test_ring_attention_matches_megatron`` mirrored on
   deepseek-67b (8 heads, 2 KV heads): ring against the port's Megatron-SP
   and JAX's single device, 1e-5.
@@ -51,6 +53,7 @@ from jax.sharding import PartitionSpec as JP  # noqa: E402
 
 from repro.configs import get_arch as jax_arch  # noqa: E402
 from repro.configs import reduced_config as jax_reduced  # noqa: E402
+from repro.configs.base import LayerSpec as JLayerSpec  # noqa: E402
 from repro.configs.base import ShapeCell as JShapeCell  # noqa: E402
 from repro.launch import steps as JS  # noqa: E402
 from repro.models import model as JM  # noqa: E402
@@ -81,7 +84,8 @@ GRAD_TOL = dict(rtol=1e-4, atol=1e-5)          # as test_torch_train_loss.py
 HEADS = {"olmoe-1b-7b": dict(num_heads=4, num_kv_heads=2),
          "starcoder2-3b": dict(num_heads=4, num_kv_heads=2),
          "deepseek-67b": dict(num_heads=8, num_kv_heads=2),
-         "jamba-v0.1-52b": {}, "deepseek-v3": {}}
+         "jamba-v0.1-52b": {}, "deepseek-v3": {}, "rwkv6-1.6b": {},
+         "seamless-m4t-medium": {}}
 VARIANTS = {"base": dict(fsdp=False), "fsdp": dict(fsdp=True),
             "ring": dict(fsdp=False, ring_attn=True)}
 
@@ -95,6 +99,10 @@ def configs(arch, dtype="float32"):
     deepseek-v3 route every token to all 8 experts)."""
     kw = dict(HEADS[arch], dtype=dtype)
     j, t = jax_reduced(jax_arch(arch)).replace(**kw), reduced_config(get_arch(arch)).replace(**kw)
+    if arch == "rwkv6-1.6b":          # 4 WKV heads of 16, as a reduced launcher job
+        hd = serve.REDUCED_RWKV_HEAD_DIM
+        j = j.replace(rwkv=dataclasses.replace(j.rwkv, head_dim=hd))
+        t = t.replace(rwkv=dataclasses.replace(t.rwkv, head_dim=hd))
     if arch == "jamba-v0.1-52b":
         j = j.replace(moe=dataclasses.replace(j.moe, capacity_factor=4.0,
                                               router_aux_loss_coef=0.0))
@@ -107,16 +115,27 @@ def tokens_for(cfg):
     return np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
 
 
+def frames_for(cfg):
+    """An encoder-decoder's audio frames [B, S, D] (None for other configs)."""
+    if cfg.frontend != "audio_frames":
+        return None
+    return np.random.default_rng(2).standard_normal((B, S, cfg.d_model)).astype(np.float32)
+
+
 def jax_weights(jcfg):
     jp, _ = JM.init_model(jcfg, jax_null_plan("train"), jax.random.PRNGKey(0))
     return jax.tree.map(np.asarray, jp)
 
 
-def jax_loss_and_grads(jp, jcfg, tcfg, tok):
+def jax_loss_and_grads(jp, jcfg, tcfg, tok, frames=None):
     """JAX single device: (loss, gradients in the port's leaf order)."""
+    batch = {"tokens": jnp.asarray(tok)}
+    if frames is not None:
+        batch["frames"] = jnp.asarray(frames)
+
     def f(p):
-        return JM.train_loss(p, {"tokens": jnp.asarray(tok)}, jcfg, jax_null_plan("train"),
-                             JaxNullDist(), remat=False)
+        return JM.train_loss(p, batch, jcfg, jax_null_plan("train"), JaxNullDist(),
+                             remat=False)
     loss, g = jax.value_and_grad(f)(jax.tree.map(jnp.asarray, jp))
     g = convert.params_from_jax(jax.tree.map(np.asarray, g), tcfg, device="cpu")
     return float(loss), [t.numpy() for t in convert.tree_leaves(g)]
@@ -126,18 +145,20 @@ def _cases():
     """(jobs, references) for the one spawn of the module."""
     jobs, refs = {}, {}
     for arch in ("olmoe-1b-7b", "starcoder2-3b", "deepseek-67b", "jamba-v0.1-52b",
-                 "deepseek-v3"):
+                 "deepseek-v3", "rwkv6-1.6b", "seamless-m4t-medium"):
         jcfg, tcfg = configs(arch)
         jp = jax_weights(jcfg)
         tp = convert.params_from_jax(jp, tcfg, device="cpu")
-        tok = tokens_for(tcfg)
+        tok, frames = tokens_for(tcfg), frames_for(tcfg)
         refs[arch] = dict(jp=jp, tp=tp, jcfg=jcfg, tcfg=tcfg, tok=tok,
-                          jax=jax_loss_and_grads(jp, jcfg, tcfg, tok))
-        variants = {"deepseek-67b": ("base", "ring"), "jamba-v0.1-52b": ("base", "fsdp"),
-                    "deepseek-v3": ("base", "fsdp")}.get(arch, VARIANTS)
+                          jax=jax_loss_and_grads(jp, jcfg, tcfg, tok, frames))
+        variants = {"deepseek-67b": ("base", "ring")}.get(
+            arch, VARIANTS if arch in ("olmoe-1b-7b", "starcoder2-3b") else ("base", "fsdp"))
         for v in variants:
             jobs[f"grads/{arch}/{v}"] = dict(kind="grads", cfg=tcfg, params=tp, tokens=tok,
                                              plan_kw=VARIANTS[v])
+            if frames is not None:
+                jobs[f"grads/{arch}/{v}"]["frames"] = frames
     # jamba cut to its first layer: a MoE config whose stack has no MoE layer
     # (JAX inits no stack shorter than its period: held to the port's single
     # device, which the cases above hold to JAX's)
@@ -307,7 +328,8 @@ def _unstack_specs(tree, jcfg):
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "starcoder2-3b", "gemma3-1b",
-                                  "jamba-v0.1-52b", "deepseek-v3"])
+                                  "jamba-v0.1-52b", "deepseek-v3", "rwkv6-1.6b",
+                                  "seamless-m4t-medium"])
 def test_fsdp_spec_trees_match_jax(arch):
     """A training plan with FSDP: the port's spec tree equals
     ``abstract_model``'s (FSDP applied leaf by leaf before stacking), and
@@ -319,6 +341,10 @@ def test_fsdp_spec_trees_match_jax(arch):
     assert repr(jplan) == repr(tplan) and tplan.fsdp_axis == "data"
     jspecs = JS.abstract_model(jcfg, jplan)[1]
     jspecs = dict(jspecs, stack=_unstack_specs(jspecs["stack"], jcfg))
+    if "encoder" in jspecs:
+        enc = jcfg.replace(num_layers=jcfg.encoder_layers,
+                           period=(JLayerSpec(mixer="attn", ffn="dense"),))
+        jspecs["encoder"] = _unstack_specs(jspecs["encoder"], enc)
     tspecs = SP.param_specs(tcfg, tplan)
     flat = dict(zip(flatten(tspecs_as_tree(tspecs)), SP.spec_leaves(tspecs)))
     jflat = {"/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path): s
@@ -359,6 +385,20 @@ def test_deepseek_v3_train_step_matches_single_device(runs, variant):
     and on, against JAX's single device."""
     res = _check_train_step(runs, "deepseek-v3", variant)
     assert res[0]["plan"].attn_mode == "replicated"
+
+
+@pytest.mark.parametrize("variant", ["base", "fsdp"])
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "seamless-m4t-medium"])
+def test_rwkv_and_encdec_train_steps_match_single_device(runs, arch, variant):
+    """The reduced rwkv6 (the WKV heads and d_ff over model, 4 heads of 16)
+    and seamless (the encoder on the sequence-sharded frames, head-TP
+    self- and cross-attention over the sequence-sharded encoder output):
+    the train step on the 2x2 mesh, FSDP off and on (the encoder's layers
+    and ``enc_norm`` gathered where they run), against JAX's single-device
+    loss (1e-5) and ``jax.grad``."""
+    res = _check_train_step(runs, arch, variant)
+    assert res[0]["plan"].attn_mode == ("head_tp" if arch == "seamless-m4t-medium"
+                                        else "replicated")
 
 
 def test_moe_config_without_a_moe_layer_trains_across_ranks(runs):

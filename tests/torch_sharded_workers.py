@@ -65,7 +65,9 @@ def run_jobs(mesh, dist, dev, jobs):
     (numpy), pos (decode), to_seq (prefill: the decode capacity to re-lay
     the caches out for). A "serve" job prefills `tokens` [B, seq], re-lays
     the caches out for `to_seq` and decodes `feed` [B, n] (numpy) at
-    positions seq, seq + 1, ..., returning each step's logits [n, B, V]
+    positions seq, seq + 1, ... (an encoder-decoder encodes `frames`
+    [B, seq, D], numpy, split as the tokens, and its decode reads
+    ``enc_len = to_seq``), returning each step's logits [n, B, V]
     and the local positions of the rank's cache shard that hold a row.
     Returns this rank's results per job."""
     results = []
@@ -112,8 +114,12 @@ def _serve(cfg, job, mesh, dist):
                               dist=dist)
     dec = steps.build_decode_step(cfg, ShapeCell("d", S, B, "decode"), dec_plan, mesh,
                                   dist=dist, logits=True)
-    tok = torch.from_numpy(shard_leaf(job["tokens"], pre.in_specs["tokens"], mesh))
-    _, caches = pre(shard_tree(job["params"], pre.param_specs, mesh), {"tokens": tok})
+    batch = {"tokens": torch.from_numpy(shard_leaf(job["tokens"], pre.in_specs["tokens"],
+                                                   mesh))}
+    if "frames" in job:
+        batch["frames"] = torch.from_numpy(shard_leaf(job["frames"], pre.in_specs["frames"],
+                                                      mesh))
+    _, caches = pre(shard_tree(job["params"], pre.param_specs, mesh), batch)
     caches = kvcache.pad_to_capacity(cfg, caches, P, S, dec_plan, dist)
     params = shard_tree(job["params"], dec.param_specs, mesh)
     logits = []

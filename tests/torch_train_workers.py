@@ -34,7 +34,8 @@ def _gather(tree, specs, dist, mine: bool):
 
 def train_jobs(mesh, dist, dev, jobs):
     """Each job: cfg, params (the global tree, CPU tensors), tokens [B, S]
-    (numpy), plan_kw, and kind:
+    (numpy), optional frames [B, S, D] (numpy, an encoder-decoder's),
+    plan_kw, and kind:
       "loss"    ``train_loss``'s forward on a plan without FSDP, called
                 as the model function (no train step);
       "grads"   the train step's loss and reduced gradients, gathered;
@@ -59,17 +60,20 @@ def train_jobs(mesh, dist, dev, jobs):
         step = steps.build_train_step(cfg, cell, plan, mesh, dist=dist,
                                       remat=job.get("remat", False), lr=job.get("lr", 3e-4))
         params = shard_tree(job["params"], step.param_specs, mesh)
-        tok = torch.from_numpy(shard_leaf(tokens, step.in_specs["tokens"], mesh))
+        batch = {"tokens": torch.from_numpy(shard_leaf(tokens, step.in_specs["tokens"], mesh))}
+        if job.get("frames") is not None:
+            batch["frames"] = torch.from_numpy(shard_leaf(job["frames"],
+                                                          step.in_specs["frames"], mesh))
         res = {"plan": plan}
         if job["kind"] == "grads":
-            loss, grads = step.loss_and_grads(params, {"tokens": tok})
+            loss, grads = step.loss_and_grads(params, batch)
             grads = step.reduce(params, grads)
             full = [unshard_leaf(g, s, dist)
                     for g, s in zip(grads, spec_leaves(step.param_specs, params))]
             res["grads"] = [_np(g) for g in full] if mine else None
         else:
             opt = optim.init_state(params)
-            params, opt, loss = step(params, opt, {"tokens": tok})
+            params, opt, loss = step(params, opt, batch)
             res["params"] = _gather(params, step.param_specs, dist, mine)
             res["m"] = _gather(opt.m, step.param_specs, dist, mine)
             res["step"] = int(opt.step)
