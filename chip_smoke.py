@@ -103,6 +103,20 @@ Phases, each printing its own lines before the last:
      2 + 2 against the single-device port;
      ``kernel.moe_gmm.grad`` times the kernel at one rank's training shape
      (E_loc 32, T 384).
+ 16. the cost model (after ``kernel.moe_gmm.grad``): ``sweep.torch_grid``
+     evaluates the product grid of ``benchmarks/fig_product_grid.py``
+     (deepseek-v3, 192 clusters x 64 scenarios x 84 batches: 1,032,192 TPOT
+     cells) with ``TorchGridEngine`` in float64 on the card, and holds the
+     card to the engine's CPU path on one block of 8 clusters, with and
+     without DBO and on a Zipf-skewed scenario;
+ 17. the dry run (after the sharded serving phases): ``dryrun`` traces the
+     cell ``sharded.olmoe-1b-7b`` served, one rank of its 2x2 mesh on a
+     fake process group with fake tensors (``launch.dryrun``, in a process
+     of its own), and holds its collective bytes and calls per kind and
+     its argument bytes to what that phase counted on the card; then the
+     roofline of olmoe-1b-7b and jamba-v0.1-52b at decode_32k on the 16x16
+     production mesh. ``--sharded-only`` runs it after
+     ``sharded.olmoe-1b-7b``.
 Every path sets the launch counters to 0 just before it and reads them
 just after; ``flash_decode`` must run once per GQA layer and step (never
 on MLA, Mamba or RWKV layers), once more per decoder layer with
@@ -1150,66 +1164,6 @@ def mla_share(torch, eng, prof, kmoe, kfd):
 # ---------------------------------------------------------------------------
 
 SHARDED_MESH = (2, 2)
-A2A_KINDS = {(0, 1): "dispatch", (1, 0): "combine"}
-
-
-class CountingDist:
-    """A rank's Dist with a count of the bytes each collective sends from
-    this rank, by kind: dispatch and combine (the MoE all-to-alls: split
-    the expert dim and concatenate capacity, and back), all_gather,
-    reduce_scatter, all_reduce (psum and pmax) and p2p (the expert move,
-    ring shifts). Bytes sent, per call, for a group of n ranks: an
-    all-to-all keeps 1/n of its input, an all-gather sends its input to
-    n - 1 ranks, a reduce-scatter (n - 1)/n of its input, and an
-    all-reduce twice that (reduce-scatter, then all-gather), as a ring
-    moves them. The counts come from the Dist's ``observer``, so the
-    collectives that a backward runs are counted too, under
-    "<kind>.backward"; with `by_axis` each kind is keyed by its axis as
-    well ("all_gather@data"). Everything else goes to the wrapped Dist."""
-
-    def __init__(self, dist, by_axis=False):
-        self._dist = dist
-        self._by_axis = by_axis
-        dist.observer = self._observe
-        self.reset()
-
-    def __getattr__(self, name):
-        return getattr(self._dist, name)
-
-    def reset(self):
-        self.counts = {}
-
-    def snapshot(self):
-        return {k: {"calls": c, "bytes": b} for k, (c, b) in self.counts.items()}
-
-    def _observe(self, op, x, axis, backward=False, split_dim=None, concat_dim=None):
-        n = self._dist.size(axis) if axis is not None else 2
-        if op in ("psum", "pmax"):
-            kind, share = "all_reduce", 2 * (n - 1) / n
-        elif op == "all_gather":
-            kind, share = op, n - 1
-        elif op == "reduce_scatter":
-            kind, share = op, (n - 1) / n
-        elif op == "all_to_all":
-            kind, share = A2A_KINDS.get((split_dim, concat_dim), op), (n - 1) / n
-        else:
-            kind, share = "p2p", 1
-        if self._by_axis and axis is not None:
-            kind += "@" + ("+".join(axis) if isinstance(axis, tuple) else axis)
-        if backward:
-            kind += ".backward"
-        c = self.counts.setdefault(kind, [0, 0])
-        c[0] += 1
-        c[1] += int(x.numel() * x.element_size() * share)
-
-
-def count_collectives(dist):
-    """``serve``'s `wrap_dist`: runs in every rank process."""
-    return CountingDist(dist)
-
-
-def count_collectives_by_axis(dist):
-    return CountingDist(dist, by_axis=True)
 
 
 def near_tie_flips(torch, ref_logits, tokens, vocab, margin=0.05):
@@ -1545,6 +1499,7 @@ def sharded_phase(torch, M, kvcache, smi, device="cuda", arch="olmoe-1b-7b",
     size."""
     from repro_torch.launch import serve
     from repro_torch.launch.serve import job_config
+    from repro_torch.sharding import counting
     tag = "sharded" if arch == "olmoe-1b-7b" else f"sharded.{arch}"
     n_cards = torch.cuda.device_count()
     n_ranks = math.prod(SHARDED_MESH)
@@ -1565,7 +1520,7 @@ def sharded_phase(torch, M, kvcache, smi, device="cuda", arch="olmoe-1b-7b",
     t0 = time.perf_counter()
     ranks = serve.spawn(sharded_serve_rank, (list(jobs.values()),),
                         mesh_shape=SHARDED_MESH, transport=transport, device=device,
-                        wrap_dist=count_collectives, timeout=900)
+                        wrap_dist=counting.count_collectives, timeout=900)
     replay = SHARDED_ARCHS[arch].get("replay", False)
     out = {"arch": arch, "transport": transport, "nvidia_smi": smi,
            "serve_wall_s": time.perf_counter() - t0, "jobs": {},
@@ -1608,6 +1563,8 @@ def sharded_phase(torch, M, kvcache, smi, device="cuda", arch="olmoe-1b-7b",
                                                  for k, v in snap.items()},
                    "collective_calls_per_step": {k: v["calls"] / steps_n
                                                  for k, v in snap.items()},
+                   "collective_prefill": res["snapshots"]["prefill"] or {},
+                   "param_bytes": res["param_bytes"], "cache_bytes": res["cache_bytes"],
                    "reshard_bytes": (res["snapshots"]["reshard"] or {}).get(
                        "p2p", {}).get("bytes", 0),
                    "relayout_bytes": sum(v["bytes"] for v in
@@ -1872,6 +1829,7 @@ def train_sharded_phase(torch, smi, device="cuda", **cut):
     reduced size."""
     from repro_torch.launch import train as launch_train
     from repro_torch.launch.serve import job_config
+    from repro_torch.sharding import counting
     n_cards = torch.cuda.device_count() if device == "cuda" else 0
     n_ranks = math.prod(SHARDED_MESH)
     transport = "nccl" if n_cards >= n_ranks else "gloo"
@@ -1902,7 +1860,7 @@ def train_sharded_phase(torch, smi, device="cuda", **cut):
     t0 = time.perf_counter()
     ranks = launch_train.serve.spawn(train_sharded_rank, (jobs, gates),
                                      mesh_shape=SHARDED_MESH, transport=transport,
-                                     device=device, wrap_dist=count_collectives_by_axis,
+                                     device=device, wrap_dist=counting.count_collectives_by_axis,
                                      timeout=900)
     out = {"transport": transport, "nvidia_smi": smi, "wall_s": time.perf_counter() - t0,
            "jobs": {}, "gates": {}}
@@ -2296,6 +2254,234 @@ def recovery_phase(torch, get_arch, ckpt_dir, layers, batch=8, seq=512, steps=10
     return res
 
 
+# ---------------------------------------------------------------------------
+# the cost model's grid engine and the dry run
+# ---------------------------------------------------------------------------
+
+# the product grid of benchmarks/fig_product_grid.py: deepseek-v3 at TP 2,
+# 2 sizes x 3 XPU generations x 4 topologies x 8 link-bandwidth multiples,
+# 8 TPOT SLOs x 8 contexts, 84 batch sizes: 1,032,192 TPOT cells
+GRID_SIZES = (64, 256)
+GRID_BW_MULTS = tuple(float(2.0 ** e) for e in range(-2, 6))
+GRID_TPOTS_MS = (5.0, 10.0, 15.0, 25.0, 40.0, 60.0, 100.0, 150.0)
+GRID_CONTEXTS = (256, 512, 1024, 2048, 4096, 8192, 16384, 32768)
+GRID_TP = 2
+GRID_BLOCK = 8         # clusters in the block the card is held to the CPU on
+GRID_RTOL = 1e-6       # the JAX engine's bar against the NumPy one
+
+
+def sweep_grid_phase(torch, smi, device="cuda", layers=None):
+    """``sweep.torch_grid``: the product grid of
+    ``benchmarks/fig_product_grid.py`` (>= 10^6 TPOT cells), built from the
+    port's copies of the cost model, evaluated by ``TorchGridEngine`` in
+    float64 on the card: the engines' lowering, the first call and the
+    steady state (median of three), and the cells per second. TPOT must not
+    rise with link bandwidth along any fiber (the benchmark's sanity
+    claim). Gates: on one block of ``GRID_BLOCK`` clusters (size 64, H100)
+    the card's grid equals the engine's CPU path within ``GRID_RTOL``
+    relative, without and with DBO, and on a Zipf-skewed scenario beside a
+    uniform one (``op_load_factors``), also with DBO; the CPU path's seconds
+    are logged beside the card's. `device` and `layers` are for the
+    rehearsal on the CPU (``tests/test_torch_chip_sweep.py``)."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import optable, sweep_torch
+    from repro_torch.core.hardware import BLACKWELL, H100, RUBIN
+    from repro_torch.core.scenario import Scenario
+    from repro_torch.core.topology import TOPOLOGIES, make_cluster
+
+    cfg = get_arch("deepseek-v3")
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    scs = [Scenario(t, c) for t in GRID_TPOTS_MS for c in GRID_CONTEXTS]
+    batches = np.unique(np.round(np.geomspace(1, 32768, 96)).astype(np.int64))
+    half = np.maximum(batches // 2, 1)
+    t0 = time.perf_counter()
+    grids = {n: (optable.op_table(cfg, GRID_TP, max(n // GRID_TP, 1), n, "fp8", pp=1),
+                 [make_cluster(topo, n, xpu, link_bw_mult=m) for xpu in (H100, BLACKWELL, RUBIN)
+                  for topo in TOPOLOGIES for m in GRID_BW_MULTS])
+             for n in GRID_SIZES}
+    tables_s = time.perf_counter() - t0
+    n_cells = sum(len(cl) for _, cl in grids.values()) * len(scs) * len(batches)
+    if n_cells < 10 ** 6:
+        raise AssertionError(f"sweep: the grid has {n_cells} cells, under 10^6")
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    engines = {n: sweep_torch.TorchGridEngine(tab, cls, scs, batches, half, device=device)
+               for n, (tab, cls) in grids.items()}
+    sync()
+    lower_s = time.perf_counter() - t0
+
+    def evaluate():
+        t = time.perf_counter()
+        out = {n: e.tpot() for n, e in engines.items()}
+        return out, time.perf_counter() - t
+
+    tpot, first_s = evaluate()
+    steady = [evaluate()[1] for _ in range(3)]
+    steady_s = _median(steady)
+    monotone = all(
+        bool(np.all(np.diff(tpot[n].reshape(3, len(TOPOLOGIES), len(GRID_BW_MULTS), len(scs),
+                                            len(batches)), axis=2) <= 1e-12))
+        for n in GRID_SIZES)
+    res = {"arch": cfg.name, "layers": cfg.num_layers, "tp": GRID_TP, "cells": n_cells,
+           "clusters": {n: len(cl) for n, (_, cl) in grids.items()},
+           "scenarios": len(scs), "batches": len(batches), "device": device,
+           "tables_s": tables_s, "lower_s": lower_s, "first_call_s": first_s,
+           "steady_s": steady_s, "steady_runs_s": steady,
+           "cells_per_s": n_cells / steady_s, "tpot_monotone_in_link_bw": monotone,
+           "nvidia_smi": smi}
+    log("sweep.grid", **res)
+
+    # the card against the engine's CPU path on one block
+    tab, cls = grids[GRID_SIZES[0]]
+    block = cls[:GRID_BLOCK]
+    zipf = [Scenario(40.0, 4096, routing="zipf", zipf_s=1.0), Scenario(40.0, 4096)]
+    load = sweep_torch.op_load_factors(tab, cfg, zipf)
+    if load is None:
+        raise AssertionError("sweep: the Zipf scenario gave no load factors")
+    gates, failures = {}, []
+    for name, grid_scs, grid_load in (("uniform", scs, None), ("zipf", zipf, load)):
+        for dbo in (False, True):
+            runs = []
+            for dev in (device, "cpu"):
+                t = time.perf_counter()
+                eng = sweep_torch.TorchGridEngine(tab, block, grid_scs, batches, half,
+                                                  load=grid_load, device=dev)
+                runs.append((eng.tpot(dbo=dbo), time.perf_counter() - t))
+            (card, card_s), (cpu, cpu_s) = runs
+            rel = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+            key = f"{name}{'_dbo' if dbo else ''}"
+            gates[key] = {"max_rel": rel, "card_s": card_s, "cpu_s": cpu_s,
+                          "cells": int(cpu.size)}
+            log(f"sweep.block.{key}", **gates[key], rtol=GRID_RTOL, nvidia_smi=smi)
+            if not rel <= GRID_RTOL:
+                failures.append(f"{key}: card and CPU differ by {rel} relative")
+    res["block_gates"] = gates
+    if not monotone:
+        failures.append("TPOT rises with link bandwidth along some fiber")
+    if failures:
+        raise AssertionError("sweep.torch_grid: " + "; ".join(failures))
+    return res
+
+
+DRYRUN_ARCHS = ("olmoe-1b-7b", "jamba-v0.1-52b")
+
+
+def _dryrun_worker(queue, cut):
+    """The dry runs of ``dryrun_phase``, in a process of their own (the
+    fake process group must not meet this one): the prefill and the decode
+    step of ``sharded.olmoe-1b-7b``'s bf16 job on its 2x2 mesh, then
+    ``run_cell`` of ``DRYRUN_ARCHS`` at decode_32k on the 16x16 mesh."""
+    import traceback
+    try:
+        from repro_torch.configs.base import ShapeCell
+        from repro_torch.launch.dryrun import dry_run, run_cell
+        from repro_torch.launch.serve import job_config, mesh_axes
+        job = sharded_jobs("olmoe-1b-7b", **cut)["bf16"]
+        cfg = job_config(job)
+        b, p, s = job["batch"], job["prompt_len"], job["max_seq"]
+        axes = mesh_axes(SHARDED_MESH)
+        out = {"prefill": dry_run(cfg, ShapeCell("p", p, b, "prefill"), SHARDED_MESH, axes),
+               "decode": dry_run(cfg, ShapeCell("d", s, b, "decode"), SHARDED_MESH, axes),
+               "production": {a: run_cell(a, "decode_32k") for a in DRYRUN_ARCHS}}
+        queue.put(("ok", out))
+    except BaseException:
+        queue.put(("error", traceback.format_exc()))
+        raise
+
+
+def _kinds(rec: dict) -> dict:
+    """{kind: {"bytes", "calls"}} of a dry-run record's collectives."""
+    c = rec["collectives"]
+    return {k[:-len("_bytes")]: {"bytes": v, "calls": c[k[:-len("_bytes")] + "_count"]}
+            for k, v in c.items() if k.endswith("_bytes") and k != "total_bytes"}
+
+
+def dryrun_phase(torch, smi, row, **cut):
+    """``dryrun``: ``launch.dryrun`` in a spawned process of its own. The
+    cell ``sharded.olmoe-1b-7b`` served (its bf16 job: 2x2 mesh, 8 prompts
+    of 64, max_seq 512, all 16 layers), traced as one rank on a fake process
+    group with fake tensors on the card, its prefill and its decode step.
+    Gates: per kind, the collective bytes and calls of each equal what the
+    serving phase's ``CountingDist`` counted on rank 0 in this run (`row`:
+    the prefill, and a decode step); the decode's parameter and cache
+    argument bytes equal that rank's. Then ``run_cell`` for olmoe-1b-7b and
+    jamba-v0.1-52b at decode_32k on the 16x16 production mesh, each
+    roofline row on the H100 (three terms, the bottleneck, the useful-FLOPs
+    ratio) with its trace seconds. `cut` (job keys) is for a rehearsal on
+    the CPU."""
+    import multiprocessing as mp
+
+    from repro_torch.analysis import roofline
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    proc = ctx.Process(target=_dryrun_worker, args=(queue, cut), daemon=True)
+    t0 = time.perf_counter()
+    proc.start()
+    try:
+        status, value = queue.get(timeout=900)
+    finally:
+        proc.join(60)
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(5)
+    if status != "ok":
+        raise RuntimeError(f"dryrun: the dry-run process failed:\n{value}")
+    wall_s = time.perf_counter() - t0
+    counted = {"prefill": row["collective_prefill"],
+               "decode": {k: {"bytes": row["collective_bytes_per_step"][k],
+                              "calls": row["collective_calls_per_step"][k]}
+                          for k in row["collective_bytes_per_step"]}}
+    failures, res = [], {"wall_s": wall_s, "nvidia_smi": smi, "cells": {}}
+    for kind in ("prefill", "decode"):
+        rec, want = value[kind], counted[kind]
+        got = _kinds(rec)
+        if got != want:
+            failures.append(f"{kind}: the trace counts {got}, the card counted {want}")
+        res["cells"][kind] = {k: rec[k] for k in (
+            "mesh", "n_devices", "plan", "trace_s", "flops", "flops_by_op", "bytes_accessed",
+            "bytes_by_op", "mem_argument_size_in_bytes", "mem_argument_parts",
+            "mem_output_size_in_bytes", "mem_temp_size_in_bytes", "collectives")}
+        log(f"dryrun.{kind}", traced=got, counted_on_card=want, trace_s=rec["trace_s"],
+            flops=rec["flops"], bytes_accessed=rec["bytes_accessed"],
+            mem_argument_parts=rec["mem_argument_parts"],
+            mem_temp_size_in_bytes=rec["mem_temp_size_in_bytes"])
+    parts = value["decode"]["mem_argument_parts"]
+    mem = {"params": [parts["params"], row["param_bytes"]],
+           "caches": [parts["caches"], row["cache_bytes"]]}
+    log("dryrun.decode_arguments", traced_vs_card=mem)
+    if any(a != b for a, b in mem.values()):
+        failures.append(f"decode argument bytes (traced, card): {mem}")
+    res["production"] = {}
+    for arch, rec in value["production"].items():
+        if rec.get("status") != "ok":
+            failures.append(f"{arch} decode_32k: {rec.get('status')} {rec.get('error')}")
+            continue
+        r = roofline.from_dryrun(rec)
+        row_out = {"compute_s": r.compute_s, "memory_s": r.memory_s,
+                   "collective_s": r.collective_s, "bottleneck": r.bottleneck,
+                   "step_time_s": r.step_time_s, "useful_flops_ratio": r.useful_flops_ratio,
+                   "roofline_fraction": r.roofline_fraction, "trace_s": rec["trace_s"],
+                   "flops": rec["flops"], "bytes_accessed": rec["bytes_accessed"],
+                   "bytes_by_op": rec["bytes_by_op"],
+                   "collective_bytes": rec["collectives"]["total_bytes"],
+                   "mem_argument_size_in_bytes": rec["mem_argument_size_in_bytes"],
+                   "mesh": rec["mesh"], "what_would_help": roofline.what_would_help(r)}
+        res["production"][arch] = row_out
+        log(f"dryrun.roofline.{arch}.decode_32k", **row_out,
+            constants={"peak_flops": roofline.PEAK_FLOPS, "hbm_bw": roofline.HBM_BW,
+                       "link_bw": roofline.LINK_BW}, nvidia_smi=smi)
+    if failures:
+        raise AssertionError("dryrun: " + "; ".join(failures))
+    return res
+
+
 def main() -> int:
     # cuBLAS is deterministic on one stream only with a fixed workspace; the
     # training phases run under torch.use_deterministic_algorithms, which
@@ -2367,12 +2553,15 @@ def main() -> int:
         sharded = {a: phase(f"sharded.{a}", sharded_phase, torch, M, kvcache, smi, arch=a,
                             timed=a == "deepseek-v3" and torch.cuda.device_count() >= 4)
                    for a in SHARDED_ARCHS if a in only}
+        dry = (phase("dryrun", dryrun_phase, torch, smi,
+                     sharded["olmoe-1b-7b"]["jobs"]["bf16"]["ranks"][0])
+               if "olmoe-1b-7b" in sharded else None)
         tsh = (phase("train_sharded.olmoe-1b-7b", train_sharded_phase, torch, smi)
                if "train_sharded" in only else None)
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke_sharded.json").write_text(json.dumps(
-            {"nvidia_smi": smi, "sharded": sharded, "train_sharded": tsh,
+            {"nvidia_smi": smi, "sharded": sharded, "train_sharded": tsh, "dryrun": dry,
              "phase_wall_s": walls}, indent=1, default=str))
         print(json.dumps({"sharded": {a: {j: {k: v for k, v in r.items() if k != "ranks"}
                                           for j, r in res["jobs"].items()}
@@ -2389,6 +2578,9 @@ def main() -> int:
     fd = phase("kernel.flash_decode", check_flash_decode, torch, F, ref, kfd, gen)
     fd_lse = phase("kernel.flash_decode_lse", check_flash_decode_lse, torch, ref, kfd, gen)
     grad = phase("kernel.moe_gmm.grad", check_moe_gmm_grad, torch, ref, kmoe, gen)
+    # the cost model's product grid on the card, held to the engine's CPU path
+    grid = phase("sweep.torch_grid", sweep_grid_phase, torch, smi)
+    free()
     parity = {"olmoe-1b-7b": phase("parity_f32", parity_f32, torch, get_arch, M,
                                    kvcache, convert)}
     free()
@@ -2420,6 +2612,9 @@ def main() -> int:
     sharded = {a: phase(f"sharded.{a}", sharded_phase, torch, M, kvcache, smi, arch=a)
                for a in SHARDED_ARCHS}
     free()
+    # the dry run of the cell sharded.olmoe-1b-7b served, held to its counts
+    dry = phase("dryrun", dryrun_phase, torch, smi,
+                sharded["olmoe-1b-7b"]["jobs"]["bf16"]["ranks"][0])
     # training across ranks: olmoe-1b-7b at 4 of 16 layers through
     # launch/train, and the f32 gates (jamba's among them)
     train_sharded = phase("train_sharded.olmoe-1b-7b", train_sharded_phase, torch, smi)
@@ -2652,7 +2847,8 @@ def main() -> int:
          "train_resume_run": resume_run, "train_resume": resume,
          "profile_train": prof_train, "train_recovery": recovery,
          "timing_floor_ms": floor_ms, "phase_wall_s": walls,
-         "profile": profiles, "kernels": kernels}, indent=1))
+         "sweep_torch_grid": grid, "dryrun": dry,
+         "profile": profiles, "kernels": kernels}, indent=1, default=str))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device}))

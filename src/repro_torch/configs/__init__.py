@@ -8,7 +8,9 @@ from repro_torch.configs.base import (
     ModelConfig,
     MoEConfig,
     RwkvConfig,
+    SHAPES,
     ShapeCell,
+    cell_applicable,
 )
 
 from repro_torch.configs import (  # noqa: E402
@@ -29,6 +31,12 @@ ARCHS = {m.CONFIG.name: m.CONFIG for m in (
     olmoe_1b_7b, starcoder2_3b, granite_moe_3b_a800m, gemma3_1b, deepseek_v3,
     jamba_v0_1_52b, deepseek_67b, minitron_8b, rwkv6_1_6b, internvl2_76b,
     seamless_m4t_medium)}
+
+# the dry run's architectures, in the JAX package's order (its ARCHS less
+# the paper's own deepseek-v3)
+ASSIGNED_ARCHS = ["jamba-v0.1-52b", "internvl2-76b", "starcoder2-3b", "minitron-8b",
+                  "gemma3-1b", "deepseek-67b", "granite-moe-3b-a800m", "olmoe-1b-7b",
+                  "rwkv6-1.6b", "seamless-m4t-medium"]
 
 
 def get_arch(name: str) -> ModelConfig:

@@ -206,3 +206,19 @@ class ShapeCell:
     @property
     def is_decode(self) -> bool:
         return self.kind == "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+
+def cell_applicable(cfg: ModelConfig, shape: ShapeCell) -> Tuple[bool, str]:
+    """long_500k needs sub-quadratic attention; skip pure full-attention archs
+    (documented in DESIGN.md section 6)."""
+    if shape.name == "long_500k" and cfg.full_attention_only:
+        return False, "pure full-attention arch: 512k KV/step is architecturally inapplicable"
+    return True, ""

@@ -17,13 +17,18 @@ Its plain version is ``ref.moe_gmm_ref``; ``ops.moe_gmm`` picks between
 them by device and sends every CUDA call through ``MoeGmm``, the
 differentiable form. ``variant_launches`` counts each variant's launched
 calls and ``launches`` their total, in this process: forward launches only,
-so a layer run again by activation checkpointing counts twice.
+so a layer run again by activation checkpointing counts twice. The launch
+is the ``torch.library`` op ``repro_torch::moe_gmm``, whose CUDA
+implementation launches and counts, with a fake and a flop formula
+(``moe_gmm_flops``) for traces (``launch.dryrun``).
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import moe_gmm_bwd_ref
@@ -85,7 +90,7 @@ def _check(x, w_gate, w_up, w_down):
             raise ValueError("moe_gmm: x and the weights must share one dtype")
         if not a.is_contiguous():
             raise ValueError("moe_gmm: tensors must be contiguous")
-        if a.data_ptr() % 16:
+        if not is_fake(a) and a.data_ptr() % 16:   # a fake tensor has no address
             raise ValueError("moe_gmm: tensors must start on a 16-byte boundary")
     if x.dtype not in DTYPES:
         raise ValueError(f"moe_gmm: dtype {x.dtype} not supported")
@@ -97,9 +102,20 @@ def _check(x, w_gate, w_up, w_down):
 def moe_gmm_cuda(x, w_gate, w_up, w_down):
     """x: [E, T, D]; w_gate/w_up: [E, D, F]; w_down: [E, F, D] -> [E, T, D],
     all on one CUDA device, float32 or bfloat16, any T, D and F. The
-    variant is ``variant(x.dtype, D, F)``; an error of either raises."""
+    variant is ``variant(x.dtype, D, F)``; an error of either raises. The
+    launch is the custom op ``repro_torch::moe_gmm``, so that a trace under
+    ``FakeTensorMode`` (the dry run) sees it with its output's shape and
+    its flop count, and launches nothing."""
+    _check(x, w_gate, w_up, w_down)
+    return torch.ops.repro_torch.moe_gmm(x, w_gate, w_up, w_down)
+
+
+def _moe_gmm_launch(x, w_gate, w_up, w_down):
+    """The op's CUDA implementation: the launch (tensors checked by
+    ``moe_gmm_cuda``)."""
     global launches
-    e, t, d, f = _check(x, w_gate, w_up, w_down)
+    e, t, d = x.shape
+    f = w_gate.shape[-1]
     which = variant(x.dtype, d, f)
     lib = _lib()
     with torch.cuda.device(x.device):
@@ -117,6 +133,23 @@ def moe_gmm_cuda(x, w_gate, w_up, w_down):
     launches += 1
     variant_launches[which] += 1
     return out
+
+
+# the op, registered through the plain ``torch.library.Library`` API: the
+# first call of a ``torch.library.custom_op`` imports DTensor, dynamo and
+# sympy (seconds of host time), and each call costs more host time
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("moe_gmm(Tensor x, Tensor w_gate, Tensor w_up, Tensor w_down) -> Tensor")
+_LIB.impl("moe_gmm", _moe_gmm_launch, "CUDA")
+torch.library.register_fake("repro_torch::moe_gmm", lambda x, w_gate, w_up, w_down:
+                            torch.empty_like(x), lib=_LIB)
+
+
+@register_flop_formula(torch.ops.repro_torch.moe_gmm)
+def moe_gmm_flops(x_shape, w_gate_shape, *args, **kwargs) -> int:
+    """6 E T D F: the gate, up and down products, 2 E T D F each."""
+    e, t, d = x_shape
+    return 6 * e * t * d * w_gate_shape[-1]
 
 
 class MoeGmm(torch.autograd.Function):

@@ -221,13 +221,20 @@ def build_train_step(cfg: ModelConfig, shape: ShapeCell, plan: ShardingPlan,
 def build_cell(cfg: ModelConfig, shape: ShapeCell, mesh, *, fsdp: bool = True,
                plan_kw=None, transport: str):
     """One cell on this rank: (step, plan), its collectives over
-    `transport` ("nccl" or "gloo")."""
+    `transport` ("nccl", "gloo", or "fake" for the dry run). `plan_kw`
+    goes to ``make_plan``."""
     plan = make_plan(cfg, shape, mesh.axes, mesh.shape, fsdp=fsdp,
                      **(plan_kw or {}))
+    return build_step(cfg, shape, plan, mesh, transport=transport), plan
+
+
+def build_step(cfg: ModelConfig, shape: ShapeCell, plan: ShardingPlan, mesh, *,
+               transport: str):
+    """The step of `shape`'s kind (train, prefill or decode) under `plan`."""
     if shape.kind == "train":
-        return build_train_step(cfg, shape, plan, mesh, transport=transport), plan
+        return build_train_step(cfg, shape, plan, mesh, transport=transport)
     build = build_prefill if shape.kind == "prefill" else build_decode_step
-    return build(cfg, shape, plan, mesh, transport=transport), plan
+    return build(cfg, shape, plan, mesh, transport=transport)
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,10 @@ The transport is chosen by the caller, never by this module:
   "gloo"  ranks on the CPU, or several ranks sharing one card. gloo's
           support for CUDA tensors is partial, so a CUDA tensor is copied
           into a pinned host buffer, the collective runs on the host, and
-          the result is copied back (``_host``; the one place this happens).
+          the result is copied back (``_host``; the one place this happens);
+  "fake"  the dry run (``launch.dryrun``): one process traces one rank of a
+          mesh under ``FakeTensorMode`` over ``torch.distributed``'s fake
+          process group, so no tensor holds data. No copy, no device check.
 A ``Dist`` without a mesh answers topology questions from its axis sizes
 only; a collective over an axis larger than 1 then raises.
 
@@ -63,7 +66,7 @@ gather, on the rank's own positions).
 before each collective with more than one rank (``info``: split_dim and
 concat_dim of an all-to-all; backward=True for the gathers, scatters,
 all-to-alls and sums a backward runs), and as ``observer("p2p", t, None)`` for each
-tensor ``exchange`` sends: ``chip_smoke.py`` counts bytes with it.
+tensor ``exchange`` sends: ``sharding.counting`` counts bytes with it.
 """
 from __future__ import annotations
 
@@ -73,7 +76,7 @@ import torch
 import torch.distributed as td
 
 AxisName = Union[str, Tuple[str, ...]]
-TRANSPORTS = ("nccl", "gloo")
+TRANSPORTS = ("nccl", "gloo", "fake")
 INT32_MAX = 2 ** 31 - 1
 
 
@@ -127,9 +130,12 @@ class Dist:
     # ------------- transport -------------
     def _host(self, x) -> bool:
         """True when `x` must go through host memory: gloo and a CUDA
-        tensor. nccl refuses a tensor that is not on a card."""
+        tensor. nccl refuses a tensor that is not on a card; the fake
+        transport moves nothing."""
         if self.transport == "gloo":
             return x.is_cuda
+        if self.transport == "fake":
+            return False
         if not x.is_cuda:
             raise ValueError("nccl transport: tensors must be on a card")
         return False

@@ -21,6 +21,10 @@ FORBIDDEN = re.compile(
     re.M)
 
 
+COST_MODEL = ("alphabeta", "collectives", "hardware", "compute_model", "workload",
+              "optable", "fabric", "topology", "overlap", "specdec", "placement")
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_imports(path):
     text = path.read_text()
@@ -30,8 +34,9 @@ def test_no_jax_or_repro_imports(path):
 def test_every_port_module_is_checked():
     """The scan covers every module of the port, the RWKV layer, the
     configs of the dense, RWKV, ViT-patch and encoder-decoder models, the
-    training loop and checkpoints, and the multi-device Dist, specs and
-    launchers among them."""
+    training loop and checkpoints, the multi-device Dist, specs and
+    launchers, the dry run, its roofline and collective counter, and the
+    cost model's copies and grid engine among them."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in ("models/layers/rwkv.py", "models/layers/attention.py",
                 "configs/deepseek_67b.py", "configs/minitron_8b.py",
@@ -39,7 +44,9 @@ def test_every_port_module_is_checked():
                 "configs/seamless_m4t_medium.py", "serving/engine.py", "convert.py",
                 "training/train_loop.py", "training/checkpoint.py",
                 "sharding/dist.py", "sharding/specs.py", "launch/mesh.py",
-                "launch/steps.py", "launch/serve.py"):
+                "launch/steps.py", "launch/serve.py", "launch/dryrun.py",
+                "sharding/counting.py", "analysis/roofline.py", "core/sweep_torch.py",
+                "core/scenario.py", *(f"core/{m}.py" for m in COST_MODEL)):
         assert f"src/repro_torch/{mod}" in names, mod
     assert "chip_smoke.py" in names
 
@@ -63,6 +70,9 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.training.fault_tolerance, repro_torch.training.compression\n"
             "import repro_torch.launch.serve, repro_torch.launch.steps\n"
             "import repro_torch.launch.mesh, repro_torch.sharding.specs\n"
+            "import repro_torch.launch.dryrun, repro_torch.analysis.roofline\n"
+            "import repro_torch.core.sweep_torch, repro_torch.core.topology\n"
+            "import repro_torch.core.optable, repro_torch.core.scenario\n"
             "from repro_torch.configs import ARCHS\n"
             "assert len(ARCHS) == 11\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"

@@ -260,3 +260,78 @@ def test_flash_decode_rejects_misaligned_kv():
             tfd.flash_decode_cuda(q, *kv, 5)
     with pytest.raises(ValueError, match="CUDA device"):   # aligned: only the device
         tfd.flash_decode_cuda(q, k.clone(), k.clone(), 5)
+
+
+# ---------------------------------------------------------------------------
+# the launches as custom ops (the dry run's view of the kernels)
+# ---------------------------------------------------------------------------
+
+GMM_SHAPE = (3, 5, 16, 24)                  # E, T, D, F
+DEC_SHAPE = (2, 8, 2, 40, 16)               # B, H, KH, S, hd
+
+
+def _kernel_cases(device, dtype):
+    e, t, d, f = GMM_SHAPE
+    b, h, kh, s, hd = DEC_SHAPE
+    gen = torch.Generator().manual_seed(0)
+
+    def mk(*shape):
+        if device == "cpu":
+            return torch.randn(shape, generator=gen).to(dtype)
+        return torch.empty(shape, dtype=dtype, device=device)
+    lengths = torch.tensor([7, 33]) if device == "cpu" else \
+        torch.empty(b, dtype=torch.int64, device=device)
+    return {
+        "moe_gmm": (ops.moe_gmm, (mk(e, t, d), mk(e, d, f), mk(e, d, f), mk(e, f, d))),
+        "flash_decode": (ops.flash_decode, (mk(b, h, hd), mk(b, kh, s, hd),
+                                            mk(b, kh, s, hd), lengths)),
+        "flash_decode_lse": (ops.flash_decode_lse, (mk(b, h, hd), mk(b, kh, s, hd),
+                                                    mk(b, kh, s, hd), lengths)),
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["moe_gmm", "flash_decode", "flash_decode_lse"])
+def test_custom_op_fake_matches_plain_shapes(name, dtype):
+    """A fake CUDA tensor goes to the custom op, whose fake gives the plain
+    version's output shapes and dtypes and launches nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    fn, args = _kernel_cases("cpu", dtype)[name]
+    want = fn(*args)
+    want = want if isinstance(want, tuple) else (want,)
+    n0 = (tmg.launches, tfd.launches, tfd.lse_launches)
+    with FakeTensorMode():
+        fn, args = _kernel_cases("cuda", dtype)[name]
+        got = fn(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        assert [(tuple(g.shape), g.dtype, g.device.type) for g in got] == \
+            [(tuple(w.shape), w.dtype, "cuda") for w in want]
+    assert (tmg.launches, tfd.launches, tfd.lse_launches) == n0
+
+
+@pytest.mark.parametrize("name", ["moe_gmm", "flash_decode", "flash_decode_lse"])
+def test_custom_op_flop_formula_counts_the_plain_version(name):
+    """The op's flop formula (6 E T D F; 4 B H S hd) equals FlopCounterMode's
+    count of the plain version on real CPU tensors."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+    fn, args = _kernel_cases("cpu", torch.float32)[name]
+    with FlopCounterMode(display=False) as plain:
+        fn(*args)
+    with FakeTensorMode():
+        fn, args = _kernel_cases("cuda", torch.float32)[name]
+        with FlopCounterMode(display=False) as op:
+            fn(*args)
+    counts = op.get_flop_counts()["Global"]
+    assert list(map(str, counts)) == [f"repro_torch.{name}"]
+    e, t, d, f = GMM_SHAPE
+    b, h, _, s, hd = DEC_SHAPE
+    want = 6 * e * t * d * f if name == "moe_gmm" else 4 * b * h * s * hd
+    assert op.get_total_flops() == plain.get_total_flops() == want
+
+
+@pytest.mark.parametrize("name", ["moe_gmm", "flash_decode", "flash_decode_lse"])
+def test_non_cpu_non_cuda_tensors_still_raise(name):
+    fn, args = _kernel_cases("cpu", torch.float32)[name]
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        fn(*(a.to("meta") for a in args))
