@@ -80,7 +80,8 @@ Phases, each printing its own lines before the last:
      serves full olmoe-1b-7b through ``launch.serve`` on a 2x2 mesh (nccl
      with a card per rank, else four ranks on card 0 over gloo): bf16, the
      fp8 dispatch, and f32 at 8 layers, each held against the single-device
-     port fed the same tokens, with per-rank step times, peak memory,
+     port fed the same tokens (bf16 and fp8 replaying the run's expert
+     choices, f32 on its own), with per-rank step times, peak memory,
      launches and collective bytes per step by kind (``CountingDist``);
      then the same for the sharded Mamba and MLA mixers,
      ``sharded.deepseek-v3`` (1 of 61 layers; f32 with 32 of 256 experts;
@@ -247,7 +248,8 @@ def time_ms(torch, fn, iters: int = 21, warmup: int = 3, spin: list | None = Non
 
 
 # substrings of each wrapper's kernel names, and its kernels per call
-KERNEL_NAMES = {"moe_gmm": (("moe_gmm_tc",), 2), "flash_decode": (("flash_decode",), 2)}
+KERNEL_NAMES = {"moe_gmm": (("moe_gmm_active", "moe_gmm_wgmma"), 3),
+                "flash_decode": (("flash_decode",), 2)}
 
 
 def call_times(prof, pats, per_call):
@@ -393,7 +395,7 @@ def check_moe_gmm(torch, ref, kmoe, gen):
         row = {"shape": [e, t, d, f], "dtype": dt, "variant": which,
                "max_abs_err": err, "err_vs_f32_truth": err_truth, "rule": rule}
         if which == "tensor_core":
-            row["tile_plan"] = dict(zip(("nf", "mt", "n_tiles"), kmoe.tile_plan(t)))
+            row["tile_plan"] = kmoe.tile_plan(t)
         if timed:
             el = 2 if dt == "bfloat16" else 4
             spin = []
@@ -406,6 +408,119 @@ def check_moe_gmm(torch, ref, kmoe, gen):
                 el * (2 * e * t * d + 3 * e * d * f), 6 * e * t * d * f, dt)
             row["library_ms"] = None
             row["hbm_tb_per_s"] = el * (2 * e * t * d + 3 * e * d * f) / row["ms"] / 1e9
+        results[name] = row
+        log("kernel.moe_gmm", case=name, **row)
+        del args, got, plain, truth
+        torch.cuda.empty_cache()
+    results.update(check_moe_gmm_routed(torch, ref, kmoe, results, by_experts))
+    return results
+
+
+# the times of the earlier mma.sync kernel, which streamed every expert,
+# at the shapes of the routed cases (PERF.md §6, on an H100 80GB HBM3 at
+# 700 W), logged beside them; not measured by this script
+EARLIER_MS = {"routed_olmoe_decode": 0.2891, "routed_olmoe_train": 3.680,
+              "routed_granite_decode": 0.0818, "routed_deepseek_decode": 7.440,
+              "routed_deepseek_sharded_decode": 3.710, "routed_jamba_decode": 1.940,
+              "routed_jamba_sharded_decode": 0.980}
+# (case, arch, rows, positions, capacity groups, expert-parallel ranks, the
+# dense case of the same shape): decode is the engine's 8 slots, each its
+# own capacity group; a sharded rank's buffer is both data ranks' 4 tokens
+# (two groups) for its E / 2 experts; training one group of 8 x 512
+ROUTED_CASES = (
+    ("routed_olmoe_decode", "olmoe-1b-7b", 8, 1, 8, 1, "decode"),
+    ("routed_olmoe_train", "olmoe-1b-7b", 8, 512, 1, 1, None),
+    ("routed_granite_decode", "granite-moe-3b-a800m", 8, 1, 8, 1, "granite_decode"),
+    ("routed_deepseek_decode", "deepseek-v3", 8, 1, 8, 1, "deepseek_decode"),
+    ("routed_deepseek_sharded_decode", "deepseek-v3", 2, 4, 2, 2,
+     "deepseek_sharded_decode"),
+    ("routed_jamba_decode", "jamba-v0.1-52b", 8, 1, 8, 1, "jamba_decode"),
+    ("routed_jamba_sharded_decode", "jamba-v0.1-52b", 2, 4, 2, 2, "jamba_sharded_decode"))
+
+
+def check_moe_gmm_routed(torch, ref, kmoe, dense, by_experts):
+    """``moe_gmm`` on buffers built by the real dispatch: ``moe_ffn`` (route,
+    ``slot_assignment``, ``index_add_``) at published widths, with
+    ``init_moe``'s router and weights at SEED and tokens at SEED + 1, its
+    buffer taken where it calls ``ops.moe_gmm``. Each is held to the bf16
+    rule, the skip counter to ``moe_gmm_active_tiles_ref``, the skipped
+    tiles' rows of out to bitwise zero; the first call runs under
+    ``set_sync_debug_mode("error")``. Each row logs the experts reached, the
+    tiles and experts skipped, its time beside the dense case's and the
+    earlier kernel's, and the bound of the work its data needs: the reached
+    experts' weights and the buffer in and out, 6 D F flops per filled row."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.layers import moe as moe_mod
+    from repro_torch.sharding.dist import NullDist
+    from repro_torch.sharding.plans import null_plan
+    results, params = {}, {}
+    for i, (name, arch, rows, pos, groups, ep, dense_case) in enumerate(ROUTED_CASES):
+        cfg = get_arch(arch)
+        if arch not in params:
+            params.clear()
+            torch.cuda.empty_cache()
+            g0 = torch.Generator(device="cuda")
+            g0.manual_seed(SEED)
+            params[arch] = moe_mod.init_moe(cfg, null_plan("decode"), g0)
+        p = params[arch]
+        gx = torch.Generator(device="cuda")
+        gx.manual_seed(SEED + 1)
+        x = torch.randn((rows, pos, cfg.d_model), generator=gx, device="cuda",
+                        dtype=getattr(torch, cfg.dtype))
+        seen, gmm = [], moe_mod.kops.moe_gmm
+        moe_mod.kops.moe_gmm = lambda x_e, *w: seen.append(x_e) or torch.zeros_like(x_e)
+        try:
+            moe_mod.moe_ffn(p, x, cfg, null_plan("decode"), NullDist(),
+                            capacity_groups=groups)
+        finally:
+            moe_mod.kops.moe_gmm = gmm
+        e_loc = seen[0].shape[0] // ep                # rank 0's experts after the a2a
+        args = [seen[0][:e_loc].contiguous()] + [p[k][:e_loc] for k in
+                                                 ("w_gate", "w_up", "w_down")]
+        del seen, x
+        e, t, d = args[0].shape
+        f = args[1].shape[-1]
+        lp = kmoe.tile_plan(t)
+        live = ref.moe_gmm_active_tiles_ref(args[0], lp[2])
+        want_skip = [int((~live).sum()), int((~live.any(1)).sum())]
+        counter = kmoe.skipped_counter("cuda")
+        before = counter.clone()
+        if i == 0:
+            torch.cuda.set_sync_debug_mode("error")   # the call must not wait
+        try:
+            got = kmoe.moe_gmm_cuda(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        skipped = (counter - before).tolist()
+        if skipped != want_skip:
+            raise AssertionError(f"moe_gmm {name}: skipped {skipped}, want {want_skip}")
+        dead = torch.repeat_interleave(~live, lp[2], dim=1)[:, :t]
+        if (got[dead].view(torch.int16) != 0).any():
+            raise AssertionError(f"moe_gmm {name}: a skipped row is not bitwise zero")
+        plain = by_experts(ref.moe_gmm_ref, args)
+        truth = by_experts(lambda *a: ref.moe_gmm_ref(*(x.float() for x in a)), args)
+        err, err_truth, err_plain = max_err(got, plain), max_err(got, truth), \
+            max_err(plain, truth)
+        rule = f"bf16 err vs f32 truth <= 1.5 x plain's ({err_plain:.3g}) + 1e-3"
+        if err_truth > 1.5 * err_plain + 1e-3 or not torch.isfinite(got).all():
+            raise AssertionError(f"moe_gmm {name}: err {err_truth} fails {rule}")
+        reached = int(live.any(1).sum())
+        filled = int((args[0] != 0).any(-1).sum())
+        row = {"arch": arch, "shape": [e, t, d, f], "dtype": cfg.dtype,
+               "variant": kmoe.variant(args[0].dtype, d, f), "tile_plan": lp,
+               "experts_reached": reached, "of_experts": e, "rows_filled": filled,
+               "tiles_skipped": skipped[0], "experts_skipped": skipped[1],
+               "max_abs_err": err, "err_vs_f32_truth": err_truth, "rule": rule}
+        row["ms"] = time_ms(torch, lambda: kmoe.moe_gmm_cuda(*args))
+        row["plain_ms"] = time_ms(torch, lambda: ref.moe_gmm_ref(*args))
+        row["bound_ms"], row["bound_by"] = bound(
+            2 * (2 * e * t * d + 3 * reached * d * f), 6 * filled * d * f, "bfloat16")
+        row["bound_all_experts_ms"] = bound(2 * (2 * e * t * d + 3 * e * d * f),
+                                            6 * e * t * d * f, "bfloat16")[0]
+        row["library_ms"] = None
+        row["dense_ms"] = dense[dense_case]["ms"] if dense_case else None
+        row["earlier_ms"] = EARLIER_MS[name]
         results[name] = row
         log("kernel.moe_gmm", case=name, **row)
         del args, got, plain, truth
@@ -806,6 +921,7 @@ def main_path(torch, get_arch, M, Engine, kmoe, kfd, arch="olmoe-1b-7b",
     run_s = time.perf_counter() - t0
     launches = read_counts(kmoe, kfd)
     variants = dict(kmoe.variant_launches)
+    skipped = kmoe.skipped_counter("cuda").tolist()   # set to 0 with the counts
 
     waves = len(eng.wave_s)
     per_step = kernel_layers(cfg)
@@ -843,6 +959,8 @@ def main_path(torch, get_arch, M, Engine, kmoe, kfd, arch="olmoe-1b-7b",
                                                   for i, n in enumerate(lens)),
         "waves": waves, "prefills": eng.prefills, "launches": launches,
         "moe_gmm_variant_launches": variants,
+        "moe_gmm_skipped": {"tiles": skipped[0], "experts": skipped[1],
+                            "experts_per_call": skipped[1] / max(launches["moe_gmm"], 1)},
         "launches_per_wave": {"moe_gmm": (launches["moe_gmm"] - L_moe * eng.prefills) / waves,
                               "flash_decode": launches["flash_decode"] / waves},
         "prefill_ms_per_request": 1e3 * sum(eng.admit_s) / eng.prefills,
@@ -1263,7 +1381,8 @@ def to_f32_in_place(tree):
 
 
 def sharded_reference(torch, M, kvcache, cfg, job, tokens, groups, device="cuda",
-                      fp8=False, truth=False, routing=None, routed_otherwise=None):
+                      fp8=False, truth=False, routing=None, routed_otherwise=None,
+                      replay=True):
     """The single-device port on the same weights (the global draw from
     SEED), fed the sharded run's tokens (teacher forcing), with the MoE
     capacity groups of the sharded run: (batch shards, sequence shards) in
@@ -1275,8 +1394,9 @@ def sharded_reference(torch, M, kvcache, cfg, job, tokens, groups, device="cuda"
     run in f32: the arithmetic without rounding to the job's dtype. With
     `routing` (the sharded run's expert choices, one [T, k] tensor per MoE
     call in the single device's token order), every MoE layer takes those
-    experts (``replaying_route``), and `routed_otherwise` receives the
-    number of tokens per call whose own choice differs. An encoder-decoder
+    experts (``replaying_route``; with `replay` False it keeps its own),
+    and `routed_otherwise` receives the number of tokens per call whose own
+    choice differs. An encoder-decoder
     encodes the run's frames (``serve.frames`` from the job's seed, in the
     job's dtype) and decodes over ``enc_len = max_seq``, as the run does.
     Returns the f32 logits [new_tokens, B, V_pad]: the prefill's last
@@ -1306,7 +1426,7 @@ def sharded_reference(torch, M, kvcache, cfg, job, tokens, groups, device="cuda"
         if routing is not None:
             moe_mod.route = replaying_route(torch, route, routing,
                                             [] if routed_otherwise is None
-                                            else routed_otherwise)
+                                            else routed_otherwise, replay)
         with torch.no_grad():
             lg, caches = M.prefill_logits(params, batch, cfg, capacity_groups=groups)
             caches = kvcache.pad_to_capacity(cfg, caches, P, S)
@@ -1334,13 +1454,20 @@ def sharded_reference(torch, M, kvcache, cfg, job, tokens, groups, device="cuda"
 # move by O(1), in the single device as in the sharded run, at other
 # positions (on an H100 80GB HBM3 at 700 W without the replay: the bf16
 # single device up to 5.4 from the f32 truth, and 38 of 128 greedy tokens
-# apart from the sharded run). rwkv6-1.6b and seamless-m4t-medium run whole
-# (24 layers; 12 + 12) in both jobs: dense, so no fp8 dispatch job.
+# apart from the sharded run). olmoe-1b-7b too: its single device would
+# route 717 tokens of 512 calls otherwise (bf16), and without the replay
+# its logits sit 0.43 from the truth where 0.05 is the arithmetic's own
+# (same card). rwkv6-1.6b and seamless-m4t-medium run whole (24 layers;
+# 12 + 12) in both jobs: dense, so no fp8 dispatch job. olmoe's f32 job
+# keeps its own routing: the check that the sharded run routes as the
+# single device does, where no rounding to bf16 moves a top-k choice.
 SHARDED_ARCHS = {
-    "olmoe-1b-7b": dict(layers=None, new_tokens=32, f32=dict(layers=8)),
+    "olmoe-1b-7b": dict(layers=None, new_tokens=32, f32=dict(layers=8),
+                        replay=("bf16", "fp8")),
     "deepseek-v3": dict(layers=1, new_tokens=16, f32=dict(layers=1, experts=32),
-                        timed_layers=4, replay=True),
-    "jamba-v0.1-52b": dict(layers=8, new_tokens=16, f32=dict(layers=5), replay=True),
+                        timed_layers=4, replay=("bf16", "fp8", "f32")),
+    "jamba-v0.1-52b": dict(layers=8, new_tokens=16, f32=dict(layers=5),
+                           replay=("bf16", "fp8", "f32")),
     "rwkv6-1.6b": dict(layers=None, new_tokens=16, f32=dict(layers=None)),
     "seamless-m4t-medium": dict(layers=None, new_tokens=16, f32=dict(layers=None)),
 }
@@ -1477,8 +1604,8 @@ def sharded_phase(torch, M, kvcache, smi, device="cuda", arch="olmoe-1b-7b",
     Each held job is held against the single-device port on the same
     weights, fed the run's own tokens, with the sharded run's MoE capacity
     groups (the fp8 run: with the e4m3 round trip of its dispatch) and,
-    for an arch with ``replay``, its expert choices, after the ranks have
-    freed the card. f32: the logits within 1e-3 of the
+    for a job its arch lists under ``replay``, its expert choices, after
+    the ranks have freed the card. f32: the logits within 1e-3 of the
     single device, flips only where its top-2 margin is under 0.05. bf16
     and fp8: held, with the single device, to the f32 truth (the same
     weights in f32), position by position (``logit_gate``, ``flip_gate``):
@@ -1521,7 +1648,7 @@ def sharded_phase(torch, M, kvcache, smi, device="cuda", arch="olmoe-1b-7b",
     ranks = serve.spawn(sharded_serve_rank, (list(jobs.values()),),
                         mesh_shape=SHARDED_MESH, transport=transport, device=device,
                         wrap_dist=counting.count_collectives, timeout=900)
-    replay = SHARDED_ARCHS[arch].get("replay", False)
+    replays = SHARDED_ARCHS[arch].get("replay", ())
     out = {"arch": arch, "transport": transport, "nvidia_smi": smi,
            "serve_wall_s": time.perf_counter() - t0, "jobs": {},
            "predicted_by_job": {}}
@@ -1604,13 +1731,18 @@ def sharded_phase(torch, M, kvcache, smi, device="cuda", arch="olmoe-1b-7b",
             log(f"{tag}.{name}", **{k: v for k, v in res.items() if k != "ranks"},
                 transport=transport, nvidia_smi=smi)
             continue
+        # a MoE job's references replay the run's expert choices where the
+        # arch lists the job, and otherwise route for themselves; both count
+        # the tokens the single device routes otherwise
+        replay = name in replays
         routing = [torch.as_tensor(c, device=device) for c in r0["routing"]] \
-            if replay else None
+            if cfg.moe is not None else None
         otherwise = []
         ref_logits = sharded_reference(torch, M, kvcache, cfg, job, r0, (2, 2), device,
-                                       fp8=fp8, routing=routing, routed_otherwise=otherwise)
-        if replay:
-            res["references_replay_expert_choices"] = True
+                                       fp8=fp8, routing=routing, routed_otherwise=otherwise,
+                                       replay=replay)
+        if routing is not None:
+            res["references_replay_expert_choices"] = replay
             res["tokens_the_single_device_routes_otherwise"] = {
                 "total": sum(otherwise), "calls": len(otherwise), "max_per_call": max(otherwise)}
         diff = (sharded[..., :v] - ref_logits[..., :v]).abs().max().item()
@@ -1624,7 +1756,7 @@ def sharded_phase(torch, M, kvcache, smi, device="cuda", arch="olmoe-1b-7b",
                 failures.append(f"f32 logits differ from the single device by {diff} > 1e-3")
         else:
             truth = sharded_reference(torch, M, kvcache, cfg, job, r0, (2, 2), device,
-                                      fp8=fp8, truth=True, routing=routing)
+                                      fp8=fp8, truth=True, routing=routing, replay=replay)
             over, res["logits_vs_truth"], e1 = logit_gate(torch, truth, sharded,
                                                           ref_logits, v)
             res["flips_not_allowed"], res["tokens_vs_truth"] = flip_gate(
@@ -1643,7 +1775,8 @@ def sharded_phase(torch, M, kvcache, smi, device="cuda", arch="olmoe-1b-7b",
         if fp8:
             res["max_abs_logit_diff_vs_bf16_reference"] = (
                 sharded[..., :v] - sharded_reference(torch, M, kvcache, cfg, job, r0, (2, 2),
-                                                     device, routing=routing)[..., :v]
+                                                     device, routing=routing,
+                                                     replay=replay)[..., :v]
             ).abs().max().item()
         if res["flips_not_allowed"]:
             failures.append(f"{name}: tokens flip where no rule allows it "
@@ -1977,7 +2110,7 @@ def check_moe_gmm_grad(torch, ref, kmoe, gen):
             el = 2 if dt == "bfloat16" else 4
             flops = 6 * e * t * d * f
             if which == "tensor_core":
-                row["tile_plan"] = dict(zip(("nf", "mt", "n_tiles"), kmoe.tile_plan(t)))
+                row["tile_plan"] = kmoe.tile_plan(t)
             row["ms"] = time_ms(torch, lambda: kmoe.moe_gmm_cuda(*args))
             row["plain_ms"] = time_ms(torch, lambda: ref.moe_gmm_ref(*args))
             row["bound_ms"], row["bound_by"] = bound(

@@ -1,24 +1,29 @@
 """Wrapper of the CUDA grouped expert SwiGLU kernel (``csrc/moe_gmm.cu``),
 the port of the Pallas kernel ``repro.kernels.moe_gmm.moe_gmm_pallas``.
 
-``moe_gmm_cuda`` checks its tensors, allocates the output and the h
-scratch, and launches one of two variants of the two-pass kernel on the
+``moe_gmm_cuda`` checks its tensors, allocates the output, the h scratch
+and the work list, and launches one of two variants of the kernel on the
 current stream, chosen by ``variant(dtype, d, f)`` from the dtype and the
 shape alone, never on failure:
 
-- ``"tensor_core"``: bfloat16 with D and F multiples of 8 (the 16-byte
-  copies' alignment; every config in ``repro_torch.configs`` meets it).
-  The weights are the MMA's rows and the tokens its columns, so each
-  weight is read once for any T <= 256 (``tile_plan``).
+- ``"tensor_core"``: bfloat16 with D and F multiples of 8 (TMA's 16-byte
+  strides; every config in ``repro_torch.configs`` meets it). A pass
+  marks the (expert, token tile) pairs that hold a nonzero element and
+  zeroes the output rows of the others; persistent ``wgmma`` kernels fed
+  by TMA rings then stream only the live tiles' expert weights, in the
+  tile plan ``tile_plan(T)`` gives. The tiles and experts skipped are
+  added to a counter on the card (``skipped_counter``); nothing is read
+  back to the host.
 - ``"cuda_core"``: everything else, float32 above all, where the f32 sums
   must not pass through TF32 tensor cores.
 
-Its plain version is ``ref.moe_gmm_ref``; ``ops.moe_gmm`` picks between
-them by device and sends every CUDA call through ``MoeGmm``, the
-differentiable form. ``variant_launches`` counts each variant's launched
-calls and ``launches`` their total, in this process: forward launches only,
-so a layer run again by activation checkpointing counts twice. The launch
-is the ``torch.library`` op ``repro_torch::moe_gmm``, whose CUDA
+Its plain version is ``ref.moe_gmm_ref`` (and ``ref.moe_gmm_active_tiles_ref``
+for the skip); ``ops.moe_gmm`` picks between them by device and sends
+every CUDA call through ``MoeGmm``, the differentiable form.
+``variant_launches`` counts each variant's launched calls and
+``launches`` their total, in this process: forward launches only, so a
+layer run again by activation checkpointing counts twice. The launch is
+the ``torch.library`` op ``repro_torch::moe_gmm``, whose CUDA
 implementation launches and counts, with a fake and a flop formula
 (``moe_gmm_flops``) for traces (``launch.dryrun``).
 """
@@ -36,9 +41,12 @@ from repro_torch.kernels.ref import moe_gmm_bwd_ref
 NAME = "moe_gmm"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = ("tensor_core", "cuda_core")
-TC_MAX_N = 256          # tokens one tensor-core block holds
+SWAP_MAX_T = 256        # tokens one SWAP item holds: wgmma's largest N
+ROW_TILE = 128          # token rows of a ROWS item
 launches = 0
 variant_launches = dict.fromkeys(VARIANTS, 0)
+_skipped = {}           # device index -> int64 [tiles, experts] on that card
+_sms = {}               # device index -> multiprocessor count
 
 
 def _lib():
@@ -47,9 +55,9 @@ def _lib():
         lib.moe_gmm_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         lib.moe_gmm_launch.restype = ctypes.c_int
-        lib.moe_gmm_tc_launch.argtypes = [ctypes.c_void_p] * 6 \
-            + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        lib.moe_gmm_tc_launch.restype = ctypes.c_int
+        lib.moe_gmm_wgmma_launch.argtypes = [ctypes.c_void_p] * 8 \
+            + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        lib.moe_gmm_wgmma_launch.restype = ctypes.c_int
     return lib
 
 
@@ -63,15 +71,46 @@ def variant(dtype, d: int, f: int) -> str:
 
 
 def tile_plan(t: int):
-    """(nf, mt, n_tiles) of the tensor-core kernel for T tokens: a block
-    holds N = 8*nf tokens, nf the power of two that covers min(T, 256), and
-    mt weight columns (64 at nf = 32, where 128 would not fit the
-    registers); n_tiles = ceil(T / N) blocks share each weight tile, so the
-    weights stream once for T <= 256."""
-    nf = 1
-    while 8 * nf < min(t, TC_MAX_N):
-        nf *= 2
-    return nf, (64 if nf == 32 else 128), -(-t // (8 * nf))
+    """(plan, n, tile_rows, n_tiles) of the tensor-core kernel for T tokens
+    per expert, a pure rule of T:
+
+    - ``"swap"`` for T <= 256: the weights are the wgmma's M rows and the
+      tokens its N columns, N = the power of two >= max(T, 8); one token
+      tile of T rows per expert, so each weight element streams once.
+    - ``"rows"`` for T > 256: the tokens are the M rows, in ceil(T / 128)
+      tiles of 128 rows (n = 128, the gated pass's weight columns), whose
+      items share each weight tile through L2.
+
+    A token tile is also the unit of the skip: one with no nonzero element
+    streams no weights."""
+    if t <= SWAP_MAX_T:
+        n = 8
+        while n < t:
+            n *= 2
+        return "swap", n, t, 1
+    return "rows", ROW_TILE, ROW_TILE, -(-t // ROW_TILE)
+
+
+def skipped_counter(device) -> torch.Tensor:
+    """The card's int64 [tiles, experts] counter that every tensor-core call
+    on `device` adds its skipped token tiles and experts to (the tiles
+    with no nonzero element, and the experts with no live tile); read it
+    around a call to see that call's skip."""
+    idx = torch.device(device).index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    if idx not in _skipped:
+        _skipped[idx] = torch.zeros(2, dtype=torch.int64, device=f"cuda:{idx}")
+    return _skipped[idx]
+
+
+def sm_count(device) -> int:
+    """The multiprocessor count of a CUDA device (the persistent grid)."""
+    device = torch.device(device)
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
 
 
 def _check(x, w_gate, w_up, w_down):
@@ -125,8 +164,11 @@ def _moe_gmm_launch(x, w_gate, w_up, w_down):
         ptrs = (x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
                 w_down.data_ptr(), h.data_ptr(), out.data_ptr())
         if which == "tensor_core":
-            nf, mt, _ = tile_plan(t)
-            status = lib.moe_gmm_tc_launch(*ptrs, e, t, d, f, nf, mt, stream)
+            plan, n, tile_rows, n_tiles = tile_plan(t)
+            work = torch.empty(2 + 2 * e * n_tiles, dtype=torch.int32, device=x.device)
+            status = lib.moe_gmm_wgmma_launch(
+                *ptrs, work.data_ptr(), skipped_counter(x.device).data_ptr(), e, t, d,
+                f, int(plan == "rows"), n, tile_rows, n_tiles, sm_count(x.device), stream)
         else:
             status = lib.moe_gmm_launch(*ptrs, e, t, d, f, DTYPES[x.dtype], stream)
     build.check(status, NAME)
@@ -178,8 +220,11 @@ class MoeGmm(torch.autograd.Function):
 
 
 def reset_counts() -> None:
-    """Set every launch counter of this wrapper to 0."""
+    """Set every launch counter of this wrapper to 0, and the skip counters
+    on the cards that have one (queued, no wait)."""
     global launches
     launches = 0
     for key in variant_launches:
         variant_launches[key] = 0
+    for counter in _skipped.values():
+        counter.zero_()

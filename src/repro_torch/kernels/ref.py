@@ -22,6 +22,19 @@ def moe_gmm_ref(x, w_gate, w_up, w_down):
     return torch.einsum("etf,efd->etd", h, w_down)
 
 
+def moe_gmm_active_tiles_ref(x, tile: int):
+    """The tensor-core kernel's skip: x [E, T, D] in token tiles of `tile`
+    rows -> live [E, ceil(T / tile)] bool, True where the tile holds a
+    nonzero element (-0 is zero). A dead tile's rows of ``moe_gmm_ref`` are
+    exact zeros (silu(0) * 0 = 0). The kernel skips ``(~live).sum()`` tiles
+    and ``(~live.any(1)).sum()`` experts."""
+    e, t, d = x.shape
+    ntt = -(-t // tile)
+    rows = torch.zeros((e, ntt * tile, d), dtype=torch.bool, device=x.device)
+    rows[:, :t] = x != 0
+    return rows.reshape(e, ntt, tile * d).any(-1)
+
+
 def flash_decode_ref(q, k, v, length):
     """Single-token decode attention, math in f32.
     q: [B, H, hd]; k/v: [B, KH, S, hd]; length: int, 0-d tensor or [B] int

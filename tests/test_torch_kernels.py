@@ -204,8 +204,9 @@ def test_lengths_tensor_shapes():
 # ---------------------------------------------------------------------------
 
 def test_moe_gmm_variant_rule():
-    """bf16 with D and F multiples of 8 takes the tensor-core kernel, every
-    config of the port among them; f32 and odd widths the CUDA-core one."""
+    """bf16 with D and F multiples of 8 (TMA's 16-byte strides) takes the
+    tensor-core kernel, every config of the port among them; f32 and odd
+    widths the CUDA-core one."""
     from repro_torch.configs import ARCHS, reduced_config
     for name, cfg in ARCHS.items():
         if cfg.moe is None:
@@ -215,23 +216,64 @@ def test_moe_gmm_variant_rule():
             assert tmg.variant(torch.bfloat16, d, f) == "tensor_core", name
             assert tmg.variant(torch.float32, d, f) == "cuda_core", name
     assert tmg.variant(torch.bfloat16, 2048, 1024) == "tensor_core"
-    assert tmg.variant(torch.bfloat16, 2048, 1000) == "tensor_core"  # F % 128 != 0
+    assert tmg.variant(torch.bfloat16, 2048, 1000) == "tensor_core"  # F % 64 != 0
     for d, f in ((32, 130), (40, 7), (64, 300), (2048, 1004), (36, 128)):
         assert tmg.variant(torch.bfloat16, d, f) == "cuda_core", (d, f)
     assert tmg.variant(torch.float32, 256, 128) == "cuda_core"
 
 
-@pytest.mark.parametrize("t,plan", [(1, (1, 128, 1)), (8, (1, 128, 1)),
-                                    (9, (2, 128, 1)), (24, (4, 128, 1)),
-                                    (100, (16, 128, 1)), (128, (16, 128, 1)),
-                                    (129, (32, 64, 1)), (256, (32, 64, 1)),
-                                    (257, (32, 64, 2)), (1000, (32, 64, 4))])
+@pytest.mark.parametrize("t,plan", [(1, ("swap", 8, 1, 1)), (2, ("swap", 8, 2, 1)),
+                                    (8, ("swap", 8, 8, 1)), (9, ("swap", 16, 9, 1)),
+                                    (12, ("swap", 16, 12, 1)), (24, ("swap", 32, 24, 1)),
+                                    (39, ("swap", 64, 39, 1)), (100, ("swap", 128, 100, 1)),
+                                    (128, ("swap", 128, 128, 1)),
+                                    (129, ("swap", 256, 129, 1)),
+                                    (256, ("swap", 256, 256, 1)),
+                                    (257, ("rows", 128, 128, 3)),
+                                    (384, ("rows", 128, 128, 3)),
+                                    (768, ("rows", 128, 128, 6)),
+                                    (1000, ("rows", 128, 128, 8))])
 def test_moe_gmm_tile_plan(t, plan):
-    """One block holds every token up to 256, so each weight streams once;
-    past that, ceil(T / 256) token tiles."""
-    nf, mt, n_tiles = tmg.tile_plan(t)
-    assert (nf, mt, n_tiles) == plan
-    assert 8 * nf * n_tiles >= t and (n_tiles == 1) == (t <= tmg.TC_MAX_N)
+    """T <= 256: the swapped product, one token tile of T rows per expert
+    and N the power of two that covers T (wgmma's N runs 8..256), so each
+    weight streams once; past that, the tokens are the rows, in tiles of
+    128."""
+    got = tmg.tile_plan(t)
+    assert got == plan
+    kind, n, tile_rows, n_tiles = got
+    assert tile_rows * n_tiles >= t > tile_rows * (n_tiles - 1)
+    if kind == "swap":
+        assert t <= tmg.SWAP_MAX_T and n_tiles == 1 and t <= n <= 256
+        assert n >= 8 and n & (n - 1) == 0
+    else:
+        assert t > tmg.SWAP_MAX_T and tile_rows == tmg.ROW_TILE
+
+
+@pytest.mark.parametrize("t,fill", [(1, 1), (8, 3), (24, 24), (100, 63), (200, 129),
+                                    (257, 0), (257, 129), (384, 128), (384, 129),
+                                    (768, 512)])
+def test_moe_gmm_active_tiles_in_plan_tiles(t, fill):
+    """The skip in the tiles ``tile_plan(T)`` gives, on a buffer whose
+    experts fill their rows as a prefix (``slot_assignment``'s layout):
+    expert 0 fills `fill` rows, expert 1 none, expert 2 one element of its
+    last row. SWAP holds an expert as one tile, so it skips only expert 1;
+    ROWS skips the 128-row tiles past each prefix, and the tile that the
+    prefix ends in is live."""
+    plan, _, tile, ntt = tmg.tile_plan(t)
+    x = torch.zeros((3, t, 16), dtype=torch.bfloat16)
+    x[0, :fill] = 1.0
+    x[2, t - 1, 15] = -2.0
+    live = ref.moe_gmm_active_tiles_ref(x, tile)
+    want = torch.zeros((3, ntt), dtype=torch.bool)
+    want[0, :-(-fill // tile)] = True
+    want[2, -1] = True
+    assert torch.equal(live, want)
+    assert int((~live).sum()) == 3 * ntt - (-(-fill // tile)) - 1
+    assert int((~live.any(1)).sum()) == (2 if fill == 0 else 1)
+    if plan == "swap":
+        assert ntt == 1 and tile == t
+    else:
+        assert tile == tmg.ROW_TILE
 
 
 @pytest.mark.parametrize("s,n", [(1, 1), (63, 1), (64, 1), (65, 2), (500, 8),

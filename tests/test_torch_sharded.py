@@ -610,6 +610,12 @@ def test_chip_smoke_sharded_phase_rehearses_on_cpu(monkeypatch):
         assert r["collective_bytes_per_step"]["combine"] == pred["combine"]
     for r in jobs["fp8"]["ranks"]:
         assert r["collective_bytes_per_step"]["dispatch"] == pred["dispatch_fp8"]
+    # bf16 and fp8 replay the run's expert choices; f32 routes for itself,
+    # and every token goes where the sharded run sent it
+    assert jobs["bf16"]["references_replay_expert_choices"] is True
+    assert jobs["fp8"]["references_replay_expert_choices"] is True
+    assert jobs["f32"]["references_replay_expert_choices"] is False
+    assert jobs["f32"]["tokens_the_single_device_routes_otherwise"]["total"] == 0
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -1,15 +1,16 @@
-"""Two checkouts of the PyTorch port against each other on one card: the
-olmoe-1b-7b decode wave, and the host cost of a kernel call.
+"""Two checkouts of the PyTorch port against each other on one card: a
+config's decode wave (olmoe-1b-7b unless ``--arch`` names another), and the
+host cost of a kernel call.
 
     python tools/torch_wave_ab.py --trees build/parent build/tree --pairs 3 \\
-        [--out chiprun_out/wave_ab.jsonl]
+        [--arch granite-moe-3b-a800m] [--out build/wave_ab.jsonl]
 
 Each tree is the root of a checkout (its ``chip_smoke.py`` and ``src/``,
 e.g. unpacked from ``git archive``). The sides run one at a time, each in
 a process of its own, alternated: A B B A A B ... for ``--pairs`` pairs.
 A side prints one JSON line:
 
-- ``chip_smoke.main_path``'s olmoe wave (median and mean ms), prefill ms a
+- ``chip_smoke.main_path``'s wave (median and mean ms), prefill ms a
   request, and the kernels' launches a wave; ``chip_smoke.profile_waves``'s
   device ms, kernels and idle share a wave;
 - ``wrapper_us``: the host µs a call of ``ops.moe_gmm`` and
@@ -34,6 +35,8 @@ import time
 
 ROUNDS = 15
 CALLS = 200
+# each config's requests as chip_smoke.py's main phase serves them
+PATHS = {"olmoe-1b-7b": {}, "granite-moe-3b-a800m": dict(n_requests=12, new_tokens=16)}
 
 
 def _median(xs):
@@ -58,8 +61,8 @@ def _host_us(torch, fns: dict) -> dict:
     return {name: _median(r) for name, r in rounds.items()}
 
 
-def side(tree: str) -> dict:
-    """One side: run from `tree`'s own sources."""
+def side(tree: str, arch: str) -> dict:
+    """One side: `arch` run from `tree`'s own sources."""
     tree = os.path.abspath(tree)
     sys.path[:0] = [tree, os.path.join(tree, "src")]
     import torch
@@ -90,7 +93,8 @@ def side(tree: str) -> dict:
         torch.cuda.synchronize()
         first[name] = 1e3 * (time.perf_counter() - t)
 
-    res, eng, prompts = chip_smoke.main_path(torch, get_arch, M, Engine, kmoe, kfd)
+    res, eng, prompts = chip_smoke.main_path(torch, get_arch, M, Engine, kmoe, kfd,
+                                             arch=arch, **PATHS[arch])
     prof = chip_smoke.profile_waves(torch, eng, prompts, res["decode_ms_per_wave_median"])
     del eng
     torch.cuda.empty_cache()
@@ -107,7 +111,7 @@ def side(tree: str) -> dict:
             "flash_decode_direct": lambda: kfd._flash_decode_launch(q, k, k, lengths)})
         dispatch = dict(us, **{f"{n}_added": us[f"{n}_op"] - us[f"{n}_direct"]
                                for n in ("moe_gmm", "flash_decode")})
-    return {"tree": tree, "wave_ms_median": res["decode_ms_per_wave_median"],
+    return {"tree": tree, "arch": arch, "wave_ms_median": res["decode_ms_per_wave_median"],
             "wave_ms_mean": res["decode_ms_per_wave"],
             "prefill_ms_per_request": res["prefill_ms_per_request"],
             "launches_per_wave": res["launches_per_wave"],
@@ -121,11 +125,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trees", nargs=2, metavar=("A", "B"))
     ap.add_argument("--pairs", type=int, default=3)
+    ap.add_argument("--arch", default="olmoe-1b-7b", choices=sorted(PATHS))
     ap.add_argument("--out", default=None)
     ap.add_argument("--side", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.side:
-        print(json.dumps(side(args.side)), flush=True)
+        print(json.dumps(side(args.side, args.arch)), flush=True)
         return 0
     if not args.trees:
         ap.error("--trees A B")
@@ -137,8 +142,9 @@ def main(argv=None) -> int:
     rc = 0
     for tree in [t for pair in order for t in pair]:
         t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--side", tree],
-                           capture_output=True, text=True, timeout=600)
+        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--side", tree,
+                            "--arch", args.arch], capture_output=True, text=True,
+                           timeout=600)
         line = r.stdout.strip().splitlines()[-1] if r.returncode == 0 else json.dumps(
             {"tree": tree, "rc": r.returncode, "stderr": r.stderr[-2000:]})
         print(f"side={tree} rc={r.returncode} s={time.perf_counter() - t0:.1f}", flush=True)
