@@ -93,7 +93,19 @@ Phases, each printing its own lines before the last:
      seed, ``flash_decode_lse`` on self- and cross-attention), bf16 and
      f32, their all-reduce and all-gather bytes held to the shapes'
      prediction; ``kernel.flash_decode_lse`` also at seamless's two shard
-     shapes (hd 64).
+     shapes (hd 64) and at a DBO microbatch's olmoe shard (B 2). DBO
+     across ranks: after the decode of ``sharded.olmoe-1b-7b``'s bf16 job
+     (and, with four cards, of ``sharded.deepseek-v3``'s 4-layer job), on
+     the job's weights and caches, every rank cuts its rows in two and
+     runs 4 steps of the DBO step (``steps.build_dbo_decode_step``: each
+     microbatch's expert all-to-alls started and waited around the other's
+     compute), two plain steps of B/2 and one plain step of B; the DBO
+     tokens, logits and caches must be bitwise the plain pair's, its
+     collective bytes and calls a step and its launches the pair's
+     exactly, no all-to-all handle left waiting; then rank 0 profiles 2
+     DBO steps and 2 plain pairs: device ms of the NCCL all-to-all kernels,
+     of compute, the share of all-to-all time under compute on another
+     stream, and the idle share (``device_split``).
  15. training across ranks (after ``sharded.olmoe-1b-7b``):
      ``train_sharded.olmoe-1b-7b`` trains olmoe-1b-7b at published widths,
      4 of 16 layers, through ``launch.train`` on the same 2x2 mesh (FSDP
@@ -653,7 +665,8 @@ def check_flash_decode_lse(torch, ref, kfd, gen):
     m = -1e30, the reference's values). Also the split edges at B 8, f32,
     jamba-v0.1-52b's shard (H 32 over KH 8), and seamless-m4t-medium's
     self- and cross-attention shards (hd 64; the cross cache every row
-    valid). f32: o, m, l within 1e-4;
+    valid), and a DBO microbatch's shard of olmoe (B_loc 2). f32: o, m, l
+    within 1e-4;
     bf16: the normalised output against the f32 truth, 1.5x the plain
     version's error + 1e-3, and m within 1e-4."""
     results = {}
@@ -675,7 +688,11 @@ def check_flash_decode_lse(torch, ref, kfd, gen):
              ("seamless_self", 4, 16, 16, 64, [65, 70, 75, 79], "bfloat16", True),
              ("seamless_self_f32", 4, 16, 16, 64, [65, 70, 75, 79], "float32", False),
              ("seamless_cross", 4, 16, 16, 64, [256] * 4, "bfloat16", True),
-             ("seamless_cross_f32", 4, 16, 16, 64, [256] * 4, "float32", False)]
+             ("seamless_cross_f32", 4, 16, 16, 64, [256] * 4, "float32", False),
+             # a DBO microbatch of the sharded olmoe: B_loc / 2 rows, at the
+             # positions of the sub-run after the bf16 job's 31 decode steps
+             ("sharded_dbo_microbatch", 2, 16, 16, 128, [96, 101], "bfloat16", True),
+             ("sharded_dbo_microbatch_f32", 2, 16, 16, 128, [96, 101], "float32", False)]
     S = 256
     for name, B, H, KH, hd, lens, dt, timed in cases:
         tdt = getattr(torch, dt)
@@ -1463,9 +1480,10 @@ def sharded_reference(torch, M, kvcache, cfg, job, tokens, groups, device="cuda"
 # single device does, where no rounding to bf16 moves a top-k choice.
 SHARDED_ARCHS = {
     "olmoe-1b-7b": dict(layers=None, new_tokens=32, f32=dict(layers=8),
-                        replay=("bf16", "fp8")),
+                        replay=("bf16", "fp8"), dbo="bf16"),
     "deepseek-v3": dict(layers=1, new_tokens=16, f32=dict(layers=1, experts=32),
-                        timed_layers=4, replay=("bf16", "fp8", "f32")),
+                        timed_layers=4, replay=("bf16", "fp8", "f32"),
+                        dbo="bf16_4_layers"),
     "jamba-v0.1-52b": dict(layers=8, new_tokens=16, f32=dict(layers=5),
                            replay=("bf16", "fp8", "f32")),
     "rwkv6-1.6b": dict(layers=None, new_tokens=16, f32=dict(layers=None)),
@@ -1478,7 +1496,8 @@ def sharded_jobs(arch, timed=False, **cut):
     MoE config only) and f32 (16 new tokens), each held to the single
     device; with `timed`, for an arch with ``timed_layers``, one more bf16
     job that deep, timed and not held to a single device (it would not fit
-    one card)."""
+    one card). The job the arch names under ``dbo`` also runs the DBO
+    sub-run (``sharded_dbo_subrun``)."""
     import dataclasses
 
     from repro_torch.launch.serve import job_config
@@ -1500,6 +1519,8 @@ def sharded_jobs(arch, timed=False, **cut):
     if timed and "timed_layers" in spec:
         jobs[f"bf16_{spec['timed_layers']}_layers"] = dict(
             base, layers=spec["timed_layers"], reference=False)
+    if spec.get("dbo") in jobs:
+        jobs[spec["dbo"]] = dict(jobs[spec["dbo"]], dbo_subrun=True)
     return jobs
 
 
@@ -1564,6 +1585,182 @@ def predicted_dense_decode_bytes(cfg, job, mesh=SHARDED_MESH):
             "calls": {"all_reduce": len(ar), "all_gather": len(ag)}}
 
 
+DBO_SUBRUN_STEPS = 4      # compared and timed steps; then 2 + 2 profiled
+
+
+def _intervals_len(iv) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, -math.inf
+    for a, b in sorted(iv):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def _covered(a, b, iv) -> float:
+    """Length of (a, b) covered by the union of intervals `iv`."""
+    return _intervals_len([(max(a, x), min(b, y)) for x, y in iv if y > a and x < b])
+
+
+def device_split(trace: dict, n_steps: int) -> dict:
+    """Per step, from a chrome trace of the profiler: device ms of the NCCL
+    all-to-all kernels (send/recv), of the other NCCL kernels, of compute
+    (every other kernel); the share of all-to-all kernel time that lies
+    under a compute kernel on another stream (the overlap); and the idle
+    share between the first and the last device item (kernels, copies,
+    sets)."""
+    items = [e for e in trace.get("traceEvents", [])
+             if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    kern = [(e["ts"], e["ts"] + e["dur"], e["name"], e.get("args", {}).get("stream"))
+            for e in items if e["cat"] == "kernel"]
+    nccl = [k for k in kern if k[2].startswith("nccl")]
+    a2a = [k for k in nccl if "SendRecv" in k[2] or "AllToAll" in k[2]]
+    compute = [k for k in kern if not k[2].startswith("nccl")]
+    other = [k for k in nccl if k not in a2a]
+
+    def ms(ks):
+        return sum(b - a for a, b, *_ in ks) / n_steps / 1e3
+    a2a_us = sum(b - a for a, b, *_ in a2a)
+    under = sum(_covered(a, b, [(x, y) for x, y, _, st in compute if st != s])
+                for a, b, _, s in a2a)
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in items]
+    window = (max(b for _, b in spans) - min(a for a, _ in spans)) if spans else 0.0
+    return {"a2a_device_ms": ms(a2a), "other_nccl_device_ms": ms(other),
+            "compute_device_ms": ms(compute),
+            "a2a_kernels": len(a2a), "nccl_kernels": len(nccl), "kernels": len(kern),
+            "overlap_share": under / a2a_us if a2a_us else None,
+            "idle_share": 1 - _intervals_len(spans) / window if window else None}
+
+
+def sharded_dbo_subrun(ctx, steps_n=DBO_SUBRUN_STEPS):
+    """The DBO sub-run of a sharded job, on every rank, on the job's own
+    weights and caches once its decode has ended (``serve_job``'s
+    `after`): each rank's rows cut in two halves (``kvcache.split_rows``),
+    then per step the two plain decode steps of B/2, the DBO step
+    (``steps.build_dbo_decode_step``) and the plain step of B, each
+    between device synchronisations. Checked per step: the DBO tokens and
+    f32 logits bitwise the plain pair's, its collective bytes and calls
+    the pair's exactly (``CountingDist``), its kernel launches the pair's,
+    and no all-to-all handle left waiting; at the end every cache leaf
+    bitwise. Then 2 DBO steps and 2 plain pairs again, rank 0 under the
+    profiler (``device_split``)."""
+    import torch
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.convert import tree_leaves
+    from repro_torch.kernels import flash_decode as kfd
+    from repro_torch.kernels import moe_gmm as kmoe
+    from repro_torch.launch import steps
+    from repro_torch.serving import kvcache
+    mesh, dist, dev, cfg, plan = (ctx[k] for k in ("mesh", "dist", "dev", "cfg", "plan"))
+    B, S = ctx["job"]["batch"], ctx["job"]["max_seq"]
+    params, full, decode = ctx["params"], ctx["caches"], ctx["decode"]
+    half = steps.build_decode_step(cfg, ShapeCell("d", S, B // 2, "decode"), plan, mesh,
+                                   dist=dist, logits=True)
+    dbo = steps.build_dbo_decode_step(cfg, ShapeCell("d", S, B, "decode"), plan, mesh,
+                                      dist=dist, logits=True)
+    plain, mine = list(kvcache.split_rows(full)), list(kvcache.split_rows(full))
+    tf = ctx["tok"]
+    pa, pb = tf.chunk(2, dim=0)
+    ta, tb = pa, pb
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def counted(fn):
+        reset_counts(kmoe, kfd)
+        kfd.lse_launches = 0
+        dist.reset()
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        launches = dict(read_counts(kmoe, kfd), flash_decode_lse=kfd.lse_launches)
+        return out, time.perf_counter() - t, launches, dist.snapshot()
+
+    res = {"steps": steps_n, "microbatch_rows_local": int(pa.shape[0]), "failures": []}
+    walls = {"dbo": [], "plain_pair": [], "plain_batch": []}
+    for i in range(steps_n):
+        pos = ctx["pos"] + i
+        (pa, plain[0], lpa, pb, plain[1], lpb), w, l_pair, c_pair = counted(
+            lambda: (*half(params, plain[0], pa, pos), *half(params, plain[1], pb, pos)))
+        walls["plain_pair"].append(w)
+        (ta, tb, mine[0], mine[1], la, lb), w, l_dbo, c_dbo = counted(
+            lambda: dbo(params, mine[0], mine[1], ta, tb, pos))
+        walls["dbo"].append(w)
+        if dist.pending:
+            res["failures"].append(f"step {i}: {dist.pending} all-to-all handles waiting")
+        if not (torch.equal(ta, pa) and torch.equal(tb, pb)):
+            res["failures"].append(f"step {i}: tokens differ from two plain steps")
+        if not (torch.equal(la, lpa) and torch.equal(lb, lpb)):
+            res["failures"].append(f"step {i}: logits differ from two plain steps")
+        if c_dbo != c_pair:
+            res["failures"].append(f"step {i}: collectives {c_dbo}, plain pair {c_pair}")
+        if l_dbo != l_pair:
+            res["failures"].append(f"step {i}: launches {l_dbo}, plain pair {l_pair}")
+        if i == 0:
+            res.update(collectives_per_step=c_dbo, launches_per_step=l_dbo)
+        out, w, _, _ = counted(lambda: decode(params, full, tf, pos))
+        tf = out[0]
+        walls["plain_batch"].append(w)
+    if not all(torch.equal(g, w) for g, w in zip(tree_leaves(mine), tree_leaves(plain))):
+        res["failures"].append("caches differ from two plain steps")
+    res.update({f"{k}_wall_ms_median": 1e3 * _median(v) for k, v in walls.items()})
+    res["wall_ms"] = {k: [1e3 * t for t in v] for k, v in walls.items()}
+
+    # the profile: two DBO steps, then two plain pairs, rank 0 traced
+    from contextlib import nullcontext
+
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] if dev.type == "cuda" else [ProfilerActivity.CPU]
+    pos = ctx["pos"] + steps_n
+    runs = {"dbo": lambda p: dbo(params, mine[0], mine[1], ta, tb, p),
+            "plain_pair": lambda p: (half(params, plain[0], pa, p),
+                                     half(params, plain[1], pb, p))}
+    for name, fn in runs.items():
+        sync()
+        with (profile(activities=acts) if mesh.rank == 0 else nullcontext()) as prof:
+            for j in range(2):
+                fn(pos + j)
+            sync()
+        if mesh.rank == 0:
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "trace.json")
+                prof.export_chrome_trace(path)
+                with open(path) as f:
+                    res[f"profile_{name}"] = device_split(json.load(f), 2)
+    del plain, mine
+    return res
+
+
+def dbo_subrun_gate(cfg, job, subs, n_gqa, device, failures) -> dict:
+    """Every rank's DBO sub-run (``sharded_dbo_subrun``) held to its checks,
+    its dispatch and combine bytes a step to two plain steps of B/2 as
+    ``predicted_a2a_bytes`` reckons them, and, on the card, its launches a
+    step to two of each kernel a layer. Returns rank 0's readings with
+    every rank's medians."""
+    n_moe = sum(s.ffn == "moe" for s in cfg.layer_specs)
+    pred = {k: 2 * v for k, v in
+            predicted_a2a_bytes(cfg, dict(job, batch=job["batch"] // 2)).items()}
+    want = {"moe_gmm": 2 * n_moe, "flash_decode_lse": 2 * n_gqa, "flash_decode": 0}
+    for r, sub in enumerate(subs):
+        failures += [f"dbo rank {r}: {f}" for f in sub["failures"]]
+        sent = {k: v["bytes"] for k, v in sub["collectives_per_step"].items()}
+        if any(not math.isclose(sent.get(k, 0), v, rel_tol=1e-9) for k, v in pred.items()):
+            failures.append(f"dbo rank {r}: all-to-all bytes a step "
+                            f"{ {k: sent.get(k) for k in pred} }, two plain steps of "
+                            f"B/2 {pred}")
+        if device == "cuda" and sub["launches_per_step"] != want:
+            failures.append(f"dbo rank {r}: launches a step {sub['launches_per_step']}, "
+                            f"want {want}")
+    out = {k: v for k, v in subs[0].items() if k != "failures"}
+    out["predicted_a2a_bytes_per_step"] = pred
+    out["ranks_wall_ms_median"] = [{k: sub[f"{k}_wall_ms_median"] for k in
+                                    ("dbo", "plain_pair", "plain_batch")} for sub in subs]
+    return out
+
+
 def sharded_serve_rank(mesh, dist, dev, jobs):
     """Every rank of ``sharded_phase``: ``launch.serve``'s job for each of
     `jobs`, each MoE layer's expert choices recorded (``recording_route``)
@@ -1578,10 +1775,14 @@ def sharded_serve_rank(mesh, dist, dev, jobs):
         chosen = []
         moe_mod.route = recording_route(route, chosen)
         try:
-            res = serve_job(mesh, dist, dev, job)
+            res = serve_job(mesh, dist, dev, job,
+                            after=sharded_dbo_subrun if job.get("dbo_subrun") else None)
         finally:
             moe_mod.route = route
         n_moe = sum(s.ffn == "moe" for s in job_config(job).layer_specs)
+        # the sub-run's expert choices come after the job's
+        n_job = n_moe * job["new_tokens"]
+        chosen = chosen[:n_job]
         routing = [dist.all_gather(c, tuple(mesh.axes), dim=0) for c in chosen[:n_moe]] \
             + [dist.all_gather(c, "data", dim=0) for c in chosen[n_moe:]]
         if mesh.rank == 0:
@@ -1710,6 +1911,12 @@ def sharded_phase(torch, M, kvcache, smi, device="cuda", arch="olmoe-1b-7b",
             per_rank.append(row)
             log(f"{tag}.{name}.rank", **{k: v for k, v in row.items()
                                          if k != "decode_ms_per_step"}, nvidia_smi=smi)
+        if job.get("dbo_subrun"):
+            sub = dbo_subrun_gate(cfg, job, [ranks[r][j]["after"] for r in range(n_ranks)],
+                                  n_gqa, device, failures)
+            out.setdefault("dbo", {})[name] = sub
+            log(f"{tag}.{name}.dbo", **{k: v for k, v in sub.items() if k != "wall_ms"},
+                transport=transport, nvidia_smi=smi)
         r0 = ranks[0][j]
         v = cfg.vocab_size
         fp8 = bool(job.get("a2a_fp8"))
@@ -2699,6 +2906,9 @@ def main() -> int:
         print(json.dumps({"sharded": {a: {j: {k: v for k, v in r.items() if k != "ranks"}
                                           for j, r in res["jobs"].items()}
                                       for a, res in sharded.items()},
+                          "dbo": {a: {j: {k: v for k, v in sub.items() if k != "wall_ms"}
+                                      for j, sub in res.get("dbo", {}).items()}
+                                  for a, res in sharded.items()},
                           "train_sharded": tsh and {"gates": tsh["gates"],
                                                     "fp8_last_loss_rel_to_bf16":
                                                     tsh["fp8_last_loss_rel_to_bf16"]}},
@@ -2914,6 +3124,9 @@ def main() -> int:
                            r["launches"]["decode"]
                            for a, res in sharded.items()
                            for j, job in res["jobs"].items() for r in job["ranks"]},
+                        **{f"sharded.{a}.{j}.dbo (rank 0, a DBO step)": sub["launches_per_step"]
+                           for a, res in sharded.items()
+                           for j, sub in res.get("dbo", {}).items()},
                         **{f"train_sharded.olmoe-1b-7b.{j} (rank {r['rank']}, 6 steps)":
                            {"moe_gmm": sum(r["moe_gmm_launches_per_step"]),
                             "flash_decode": 0, "flash_decode_lse": 0}

@@ -23,6 +23,11 @@ leaf, each rank keeping its shards (``steps.init_params``), prefills
 of ``max_seq`` (``kvcache.pad_to_capacity``), moves the experts from the
 prefill plan's layout (over model) to the decode plan's (over data) once
 (``steps.reshard``), and decodes ``new_tokens - 1`` more tokens greedily.
+With the job key ``dbo`` the decode is the DBO step
+(``steps.build_dbo_decode_step``): each rank's rows are cut in two halves
+after the one prefill, microbatch A the first, B the second, each with
+its own caches (``kvcache.split_rows``), and the tokens and logits come
+back in the plain job's row order.
 """
 from __future__ import annotations
 
@@ -214,11 +219,19 @@ def _hook(dist, name):
     return fn() if fn else None
 
 
-def serve_job(mesh, dist: Dist, dev: torch.device, job: dict) -> dict:
+def serve_job(mesh, dist: Dist, dev: torch.device, job: dict,
+              after: Optional[Callable] = None) -> dict:
     """Run one job on this rank (see the module docstring). Job keys: arch,
     batch, prompt_len, max_seq, new_tokens; optional reduced, layers,
-    config (ModelConfig overrides), seed, a2a_fp8, ffn_2d, logits (gather
-    the full f32 logits of every step, outside the timed step). Returns
+    config (ModelConfig overrides), seed, a2a_fp8, ffn_2d, dbo (decode
+    through the DBO step), logits (gather the full f32 logits of every
+    step, outside the timed step). `after`, when given, is called once the
+    decode has ended, before the outputs are gathered, as ``after(ctx)``
+    with ctx a dict of mesh, dist, dev, job, cfg, plan (the decode plan),
+    decode (the plain decode step of the batch), params, caches (the plain
+    step's layout), tok (the last token, not yet decoded) and pos (its
+    position); its result is kept under "after". A ``dbo`` job has no
+    `after`. Returns
     this rank's timings, peak memory, launch counts per phase and the
     Dist's snapshots (when it keeps any); rank 0 also the prompts, the
     tokens [B, new_tokens] and the logits [new_tokens, B, V_pad]. An
@@ -238,6 +251,13 @@ def serve_job(mesh, dist: Dist, dev: torch.device, job: dict) -> dict:
                                   mesh, dist=dist, logits=want_logits)
     decode = steps.build_decode_step(cfg, ShapeCell("d", S, B, "decode"), dec_plan,
                                      mesh, dist=dist, logits=want_logits)
+    use_dbo = bool(job.get("dbo"))
+    if use_dbo:
+        if after is not None:
+            raise ValueError("a dbo job takes no `after`")
+        dbo_step = steps.build_dbo_decode_step(cfg, ShapeCell("d", S, B, "decode"),
+                                               dec_plan, mesh, dist=dist,
+                                               logits=want_logits)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     res: Dict[str, Any] = {"rank": mesh.rank, "coords": mesh.coords(),
@@ -286,7 +306,31 @@ def serve_job(mesh, dist: Dist, dev: torch.device, job: dict) -> dict:
             toks.append(tok)
             if want_logits:
                 logits.append(o[2])
-    phase("decode", decode_all)
+
+    def decode_dbo(ca, cb):
+        ta, tb = tok.chunk(2, dim=0)
+        for i in range(n_new - 1):
+            t = time.perf_counter()
+            o = dbo_step(params, ca, cb, ta, tb, P + i)
+            _sync(dev)
+            step_s.append(time.perf_counter() - t)
+            ta, tb, ca, cb = o[:4]
+            toks.append(torch.cat([ta, tb], dim=0))
+            if want_logits:
+                logits.append(torch.cat(o[4:], dim=0))
+        return ca + cb
+    if use_dbo:
+        # microbatch A: each rank's first half of its rows, B the second
+        halves = kvcache.split_rows(caches)
+        del caches
+        caches = phase("decode", lambda: decode_dbo(*halves))
+        del halves
+    else:
+        phase("decode", decode_all)
+        if after is not None:
+            res["after"] = after(dict(mesh=mesh, dist=dist, dev=dev, job=job, cfg=cfg,
+                                      plan=dec_plan, decode=decode, params=params,
+                                      caches=caches, tok=tok, pos=P + n_new - 1))
     # the outputs are gathered after the counted phases
     bax = dec_plan.batch_axes
     toks = dist.all_gather(torch.cat(toks, dim=1), bax, dim=0)

@@ -27,6 +27,7 @@ block.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional
 
@@ -36,6 +37,7 @@ from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.convert import shard_leaf, tree_leaves
 from repro_torch.models import model as M
 from repro_torch.models.layers import common
+from repro_torch.serving import dbo
 from repro_torch.sharding.dist import Dist, NullDist
 from repro_torch.sharding.plans import ShardingPlan, make_plan
 from repro_torch.sharding.specs import (P, axes_of, batch_specs, cache_specs,
@@ -131,6 +133,38 @@ def build_decode_step(cfg: ModelConfig, shape: ShapeCell, plan: ShardingPlan,
 
     del specs["cache"]
     return Step(step, dist, plan, param_specs(cfg, plan), specs, cspecs, loc)
+
+
+def build_dbo_decode_step(cfg: ModelConfig, shape: ShapeCell, plan: ShardingPlan,
+                          mesh=None, *, dist: Optional[Dist] = None,
+                          transport: Optional[str] = None, logits: bool = False) -> Step:
+    """``serving.dbo.dbo_decode_step`` bound to this rank, as
+    ``build_decode_step`` binds ``decode_logits``: step(params, caches_a,
+    caches_b, tok_a, tok_b, pos) -> (next_a, next_b, caches_a, caches_b),
+    with the two microbatches' vocab-sharded f32 logits [B_loc / 2, 1,
+    V_loc] after them when `logits`. Each microbatch holds
+    ``shape.global_batch // 2`` rows, sharded over the batch axes as the
+    plain step's batch, with its own caches: the Step's specs and local
+    shapes are those of the plain decode step at that batch, under `plan`.
+    Refuses a batch whose halves do not split over the batch axes, and an
+    encoder-decoder (the JAX step reads no encoder positions)."""
+    B = shape.global_batch
+    dp = 1 if mesh is None else shard_count(plan.batch_axes, mesh)
+    if B % 2 or (B // 2) % dp:
+        raise ValueError(f"DBO: a microbatch of {B} // 2 rows does not split over "
+                         f"the batch axes {plan.batch_axes} ({dp} ranks)")
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError("DBO: the encoder-decoder's cross-attention "
+                                  "is not in the DBO step")
+    half = build_decode_step(cfg, dataclasses.replace(shape, global_batch=B // 2),
+                             plan, mesh, dist=dist, transport=transport)
+
+    def step(params, caches_a, caches_b, tok_a, tok_b, pos):
+        return dbo.dbo_decode_step(params, caches_a, caches_b, tok_a, tok_b, pos,
+                                   cfg, plan, half.dist, logits=logits)
+
+    return Step(step, half.dist, plan, half.param_specs, half.in_specs,
+                half.cache_specs, half.local_shapes)
 
 
 def reduce_grads(grads, leaf_specs, plan: ShardingPlan, dist: Dist, *,

@@ -28,16 +28,28 @@ all-to-all (split capacity, concatenate experts) sends them back. With
 (``fp8_dispatch_a2a``) and the combine in the model dtype. Shared experts
 are tensor-parallel over ``plan.tp_axis``, on sequence-sharded tokens
 all-gathered before and reduce-scattered after.
+
+Stages. ``moe_ffn`` is ``moe_dispatch`` (route, slot assignment, scatter,
+then the dispatch all-to-all started), ``moe_experts`` (its wait,
+``moe_gmm``, the combine started) and ``moe_combine`` (its wait, the
+gather, the gates, the shared experts), run in a row. The DBO step
+(``serving.dbo``) runs them apart, so that one microbatch's all-to-all
+is in flight under the other's compute. Where the buffer wants a
+gradient (training) each all-to-all is the differentiable one, done at
+once.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from dataclasses import dataclass
+from typing import Any
+
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers.common import (dtype_of, fp8_dequantize,
                                               fp8_quantize, normal, swiglu)
-from repro_torch.sharding.dist import Dist
+from repro_torch.sharding.dist import Dist, PendingAllToAll
 from repro_torch.sharding.plans import ShardingPlan
 
 
@@ -45,10 +57,25 @@ def fp8_dispatch_a2a(x_e, ep_ax, dist: Dist):
     """The dispatch all-to-all with an fp8 (e4m3) wire format: uint8 bytes
     and a f32 scale per slot travel; the result is dequantized to x_e's
     dtype."""
+    return fp8_dispatch_start(x_e, ep_ax, dist).wait()
+
+
+def fp8_dispatch_start(x_e, ep_ax, dist: Dist) -> PendingAllToAll:
+    """``fp8_dispatch_a2a`` begun: both all-to-alls (the bytes, then the
+    scales) started; ``wait()`` waits for both and dequantizes."""
     qb, scale = fp8_quantize(x_e)
-    qg = dist.all_to_all(qb, ep_ax, split_dim=0, concat_dim=1)
-    sg = dist.all_to_all(scale, ep_ax, split_dim=0, concat_dim=1)
-    return fp8_dequantize(qg, sg, x_e.dtype)
+    qg = _a2a_start(dist, qb, ep_ax, 0, 1)
+    sg = _a2a_start(dist, scale, ep_ax, 0, 1)
+    return PendingAllToAll(lambda: fp8_dequantize(qg.wait(), sg.wait(), x_e.dtype))
+
+
+def _a2a_start(dist: Dist, x, ax, split_dim: int, concat_dim: int) -> PendingAllToAll:
+    """The all-to-all of `x` begun: started for serving, or, where `x` wants
+    a gradient, the differentiable ``all_to_all`` done at once."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return PendingAllToAll.done(dist.all_to_all(x, ax, split_dim=split_dim,
+                                                    concat_dim=concat_dim))
+    return dist.all_to_all_start(x, ax, split_dim, concat_dim)
 
 
 def capacity(t_loc: int, topk: int, n_exp: int, cf: float) -> int:
@@ -108,6 +135,21 @@ def aux_load_balance_loss(probs, idx, n_real: int):
     return n_real * torch.sum(onehot.mean(dim=-2) * probs.mean(dim=-2), dim=-1).mean()
 
 
+@dataclass
+class MoeState:
+    """One MoE call between its stages: the routing, and the all-to-all in
+    flight (``pending``: the dispatch after ``moe_dispatch``, the combine
+    after ``moe_experts``)."""
+    x: Any                    # the layer's input [B, T, D], for the shared experts
+    flat_idx: Any             # [T*k] the rows of the [E*G*cap, D] buffer
+    gates: Any
+    keep: Any
+    idx: Any
+    probs: Any
+    groups: int
+    pending: PendingAllToAll
+
+
 def moe_ffn(params, x, cfg, plan: ShardingPlan, dist: Dist, *,
             capacity_groups=1, collect_aux: bool = False):
     """x: [B, T, D], this rank's tokens. Tokens split into `capacity_groups`
@@ -124,6 +166,16 @@ def moe_ffn(params, x, cfg, plan: ShardingPlan, dist: Dist, *,
         y = out[0] if collect_aux else out
         y = y.reshape(gb, gt, B // gb, t // gt, d).transpose(1, 2).reshape(B, t, d)
         return (y, out[1]) if collect_aux else y
+    st = moe_dispatch(params, x, cfg, plan, dist, capacity_groups=capacity_groups)
+    moe_experts(params, st, plan, dist)
+    return moe_combine(params, st, cfg, plan, dist, collect_aux=collect_aux)
+
+
+def moe_dispatch(params, x, cfg, plan: ShardingPlan, dist: Dist, *,
+                 capacity_groups: int = 1) -> MoeState:
+    """The first stage: route x [B, T, D] (`capacity_groups` groups along
+    the flattened B*T axis), scatter it into the [E, G*cap, D] buffer and
+    start the dispatch all-to-all (both of the fp8 wire format's)."""
     m = cfg.moe
     B, t, d = x.shape
     n_tok = B * t
@@ -154,21 +206,37 @@ def moe_ffn(params, x, cfg, plan: ShardingPlan, dist: Dist, *,
     x_e = torch.zeros((e_pad * G * cap, d), dtype=xt.dtype, device=x.device)
     x_e.index_add_(0, flat_idx, contrib.reshape(-1, d))
     x_e = x_e.reshape(e_pad, G * cap, d)
+    # -> [E_loc, ep*C, D]: the rows of this rank's experts from every rank
+    if ep > 1 and plan.a2a_fp8:
+        pending = fp8_dispatch_start(x_e, ep_ax, dist)
+    else:
+        pending = _a2a_start(dist, x_e, ep_ax, 0, 1)
+    return MoeState(x, flat_idx, gates, keep, idx, probs, G, pending)
 
-    if ep > 1:
-        if plan.a2a_fp8:
-            x_e = fp8_dispatch_a2a(x_e, ep_ax, dist)
-        else:
-            x_e = dist.all_to_all(x_e, ep_ax, split_dim=0, concat_dim=1)
-        # -> [E_loc, ep*C, D]: the rows of this rank's experts from every rank
+
+def moe_experts(params, st: MoeState, plan: ShardingPlan, dist: Dist) -> MoeState:
+    """The second stage: wait for the dispatch, run the experts
+    (``ops.moe_gmm``) and start the combine all-to-all."""
+    x_e = st.pending.wait()
     h = kops.moe_gmm(x_e.contiguous(), params["w_gate"], params["w_up"],
                      params["w_down"])
-    if ep > 1:
-        h = dist.all_to_all(h, ep_ax, split_dim=1, concat_dim=0)    # [E, C, D]
+    st.pending = _a2a_start(dist, h, plan.ep_axis, 1, 0)            # [E, C, D]
+    return st
 
+
+def moe_combine(params, st: MoeState, cfg, plan: ShardingPlan, dist: Dist, *,
+                collect_aux: bool = False):
+    """The last stage: wait for the combine, gather each token's expert
+    rows, weight them by the gates, add the shared experts. Returns y
+    [B, T, D], or (y, aux) with `collect_aux` (see ``moe_ffn``)."""
+    m = cfg.moe
+    h = st.pending.wait()
+    x = st.x
+    B, t, d = x.shape
+    n_tok, G, k = B * t, st.groups, st.idx.shape[-1]
     # gather back and combine with gates
-    picked = h.reshape(e_pad * G * cap, d)[flat_idx].reshape(n_tok, k, d)
-    w = (gates * keep.to(gates.dtype)).to(h.dtype)
+    picked = h.reshape(-1, d)[st.flat_idx].reshape(n_tok, k, d)
+    w = (st.gates * st.keep.to(st.gates.dtype)).to(h.dtype)
     y = torch.einsum("tk,tkd->td", w, picked).reshape(B, t, d)
 
     if m.num_shared_experts:
@@ -182,6 +250,6 @@ def moe_ffn(params, x, cfg, plan: ShardingPlan, dist: Dist, *,
             sh = dist.psum(sh, plan.tp_axis)
         y = y + sh
     if collect_aux:
-        return y, aux_load_balance_loss(probs.reshape(G, n_tok // G, -1),
-                                        idx.reshape(G, n_tok // G, k), m.num_experts)
+        return y, aux_load_balance_loss(st.probs.reshape(G, n_tok // G, -1),
+                                        st.idx.reshape(G, n_tok // G, k), m.num_experts)
     return y

@@ -101,10 +101,49 @@ def apply_layer(spec: LayerSpec, p, x, cfg, plan: ShardingPlan, dist: Dist, *,
     row its own MoE capacity group, as the JAX engine's vmap over slots
     does; `capacity_groups` overrides that rule (``moe.moe_ffn``). With
     `collect_aux`, (x, new_cache | None, aux): a MoE layer's load-balance
-    loss, 0.0 for any other layer."""
+    loss, 0.0 for any other layer. The layer is ``layer_pre_ffn`` and then
+    its FFN with the residual."""
+    x, h, new_cache = layer_pre_ffn(spec, p, x, cfg, plan, dist, mode=mode,
+                                    cache=cache, pos=pos, enc_len=enc_len,
+                                    enc_out=enc_out)
+    aux = 0.0
+    make_cache = mode == "prefill"
+    if spec.mixer == "rwkv":
+        if mode == "decode":
+            h, c = rwkv_mod.rwkv_cm_decode(p["ffn"], h, cache["ffn"], plan, dist)
+        else:
+            h, c = rwkv_mod.rwkv_cm_fwd(p["ffn"], h, plan, dist,
+                                        make_cache=make_cache)
+        if c is not None:
+            new_cache["ffn"] = c
+    elif spec.ffn == "dense":
+        h = common.dense_ffn(p["ffn"], h, plan, dist)
+    else:
+        groups = capacity_groups
+        if groups is None:
+            groups = x.shape[0] if mode == "decode" and per_slot(pos) else 1
+        h = moe_mod.moe_ffn(p["ffn"], h, cfg, plan, dist,
+                            capacity_groups=groups, collect_aux=collect_aux)
+        if collect_aux:
+            h, aux = h
+    if collect_aux:
+        return x + h, (new_cache or None), aux
+    return x + h, (new_cache or None)
+
+
+def has_expert_a2a(spec: LayerSpec) -> bool:
+    """True for a layer whose FFN is the MoE layer (an RWKV layer's FFN is
+    its channel mix): the layers whose all-to-alls a DBO step overlaps."""
+    return spec.ffn == "moe" and spec.mixer != "rwkv"
+
+
+def layer_pre_ffn(spec: LayerSpec, p, x, cfg, plan: ShardingPlan, dist: Dist, *,
+                  mode: str, cache=None, pos=None, enc_len: int = 0, enc_out=None):
+    """The part of ``apply_layer`` before the FFN: the pre-norm mixer and
+    cross-attention, each with its residual, then ``norm2``. Returns (x,
+    h = norm2(x), the new cache groups so far as a dict)."""
     check_supported(spec, cfg)
     new_cache: Dict[str, Any] = {}
-    aux = 0.0
     window = cfg.sliding_window if spec.mixer == "attn_local" else 0
     h = common.rms_norm(x, p["norm1"]["scale"], cfg.norm_eps)
     make_cache = mode == "prefill"
@@ -151,29 +190,7 @@ def apply_layer(spec: LayerSpec, p, x, cfg, plan: ShardingPlan, dist: Dist, *,
             if make_cache:
                 new_cache["cross"] = enc_kv
         x = x + h
-
-    h = common.rms_norm(x, p["norm2"]["scale"], cfg.norm_eps)
-    if spec.mixer == "rwkv":
-        if mode == "decode":
-            h, c = rwkv_mod.rwkv_cm_decode(p["ffn"], h, cache["ffn"], plan, dist)
-        else:
-            h, c = rwkv_mod.rwkv_cm_fwd(p["ffn"], h, plan, dist,
-                                        make_cache=make_cache)
-        if c is not None:
-            new_cache["ffn"] = c
-    elif spec.ffn == "dense":
-        h = common.dense_ffn(p["ffn"], h, plan, dist)
-    else:
-        groups = capacity_groups
-        if groups is None:
-            groups = x.shape[0] if mode == "decode" and per_slot(pos) else 1
-        h = moe_mod.moe_ffn(p["ffn"], h, cfg, plan, dist,
-                            capacity_groups=groups, collect_aux=collect_aux)
-        if collect_aux:
-            h, aux = h
-    if collect_aux:
-        return x + h, (new_cache or None), aux
-    return x + h, (new_cache or None)
+    return x, common.rms_norm(x, p["norm2"]["scale"], cfg.norm_eps), new_cache
 
 
 def stack_specs(cfg: ModelConfig, n_layers: Optional[int] = None,

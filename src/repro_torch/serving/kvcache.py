@@ -111,6 +111,17 @@ def insert_slot(caches: List[dict], sub: List[dict], slot: int):
     return caches
 
 
+def split_rows(caches: List[dict]) -> Tuple[List[dict], List[dict]]:
+    """The batch rows (dim 0 of every leaf) of `caches` cut in two halves,
+    each a copy of its own: the caches of a DBO step's two microbatches."""
+    def half(lo):
+        def cut(i, g, n, x):
+            h = x.shape[0] // 2
+            return x[lo * h:(lo + 1) * h].clone()
+        return _map_leaves(cut, caches)
+    return half(0), half(1)
+
+
 def memory_bytes(caches: List[dict]) -> int:
     return int(sum(x.numel() * x.element_size()
                    for layer in caches for leaves in layer.values()

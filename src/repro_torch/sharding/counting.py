@@ -12,6 +12,9 @@ ranks, a reduce-scatter (n - 1)/n of its input, and an all-reduce twice
 that (reduce-scatter, then all-gather), as a ring moves them. The
 collectives that a backward runs are counted under "<kind>.backward";
 with `by_axis` each kind is keyed by its axis as well ("all_gather@data").
+A started all-to-all (``Dist.all_to_all_start``) is observed once, at its
+start, with the arguments of a plain one, so it counts as one: the same
+kind, bytes and call.
 Everything else goes to the wrapped Dist.
 """
 from __future__ import annotations

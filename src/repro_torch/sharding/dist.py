@@ -62,6 +62,17 @@ psum, in a region every rank computes alike, would get its whole
 gradient on each rank and be counted n times by ``reduce_grads``; no
 layer of the port has one (the final norm runs before the sequence
 gather, on the rank's own positions).
+Serving overlap. ``all_to_all_start`` begins an all-to-all and returns a
+``PendingAllToAll`` whose ``wait()`` gives what ``all_to_all`` gives for
+the same arguments, so that work independent of it (the other
+microbatch of a DBO step) is issued while it is in flight: under nccl
+the collective runs on NCCL's stream and ``wait()`` makes the current
+stream wait for it (no host synchronisation); under gloo it runs on
+gloo's thread on the host, and ``wait()`` copies a CUDA tensor's result
+back; the fake transport completes at once. Until ``wait()`` the handle
+holds the input and output the collective reads and writes. Every rank
+must start and wait in one order, as for any collective. ``pending``
+counts the handles this Dist made that have not been waited for.
 ``observer``, when set, is called as ``observer(op, x, axis, **info)``
 before each collective with more than one rank (``info``: split_dim and
 concat_dim of an all-to-all; backward=True for the gathers, scatters,
@@ -89,6 +100,7 @@ class Dist:
         self.mesh = mesh
         self.transport = transport
         self.observer = None
+        self.pending = 0
         if mesh is not None and transport not in TRANSPORTS:
             raise ValueError(f"transport {transport!r}: one of {TRANSPORTS}")
 
@@ -140,9 +152,9 @@ class Dist:
             raise ValueError("nccl transport: tensors must be on a card")
         return False
 
-    def _run(self, op, x, out_shape):
-        """op(inp, out) on `x` made contiguous (a pinned host copy under
-        gloo) into a fresh `out_shape` tensor; returns it on x's device."""
+    def _stage(self, x, out_shape):
+        """(inp, out, host): `x` made contiguous (a pinned host copy under
+        gloo: host True) and a fresh `out_shape` tensor beside it."""
         host = self._host(x)
         if host:
             inp = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
@@ -151,6 +163,12 @@ class Dist:
         else:
             inp = x.contiguous()
             out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+        return inp, out, host
+
+    def _run(self, op, x, out_shape):
+        """op(inp, out) on `x` staged by ``_stage``; returns out on x's
+        device."""
+        inp, out, host = self._stage(x, out_shape)
         op(inp, out)
         return out.to(x.device) if host else out
 
@@ -227,26 +245,36 @@ class Dist:
             xt, (xt.shape[0] // n,) + tuple(xt.shape[1:]))
         return out.movedim(0, dim).contiguous()
 
-    def _all_to_all(self, x, axis, split_dim, concat_dim, backward=False):
+    def _a2a_begin(self, x, axis, split_dim, concat_dim, backward=False):
+        """Check and observe an all-to-all: (n, group, x with the split dim
+        first)."""
         n = self.size(axis)
         if x.shape[split_dim] % n:
             raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} "
                              f"does not split {n} ways")
         self._observe("all_to_all", x, axis, split_dim=split_dim,
                       concat_dim=concat_dim, backward=backward)
-        group = self._need_mesh(axis).group(axis)
+        return n, self._need_mesh(axis).group(axis), x.movedim(split_dim, 0)
+
+    @staticmethod
+    def _a2a_end(out, x, n, split_dim, concat_dim):
+        """``all_to_all_single``'s output (the split dim first) laid out as
+        the tiled all-to-all of `x`."""
         piece = list(x.shape)
         piece[split_dim] //= n
-        xs = x.movedim(split_dim, 0)                          # [S, rest...]
-        out = self._run(lambda i, o: td.all_to_all_single(o, i, group=group),
-                        xs, xs.shape)
         # out[i * S/n : (i+1) * S/n] is the chunk from index i
-        y = out.reshape((n, piece[split_dim]) + tuple(xs.shape[1:]))
+        y = out.reshape((n, piece[split_dim]) + tuple(out.shape[1:]))
         y = y.movedim(1, split_dim + 1)                       # [n, *piece]
         y = y.movedim(0, concat_dim)                          # n before concat dim
         shape = list(piece)
         shape[concat_dim] *= n
         return y.reshape(shape)
+
+    def _all_to_all(self, x, axis, split_dim, concat_dim, backward=False):
+        n, group, xs = self._a2a_begin(x, axis, split_dim, concat_dim, backward)
+        out = self._run(lambda i, o: td.all_to_all_single(o, i, group=group),
+                        xs, xs.shape)
+        return self._a2a_end(out, x, n, split_dim, concat_dim)
 
     def _ppermute(self, x, axis, perm):
         mesh = self._need_mesh(axis)
@@ -310,6 +338,31 @@ class Dist:
             return _AllToAll.apply(x, self, axis, split_dim, concat_dim)
         return self._all_to_all(x, axis, split_dim, concat_dim)
 
+    def all_to_all_start(self, x, axis: Optional[AxisName], split_dim: int,
+                         concat_dim: int) -> "PendingAllToAll":
+        """``all_to_all`` begun (see the module docstring): its handle's
+        ``wait()`` returns what ``all_to_all`` returns for the same
+        arguments, bit for bit. Observed once, here. For serving only: a
+        tensor that wants a gradient is refused (``all_to_all`` is the
+        differentiable path)."""
+        if self._grad(x):
+            raise ValueError("all_to_all_start: the input wants a gradient; "
+                             "all_to_all is the differentiable path")
+        if self.size(axis) == 1:
+            return PendingAllToAll(lambda: x, self)
+        if self.transport == "fake":
+            y = self._all_to_all(x, axis, split_dim, concat_dim)
+            return PendingAllToAll(lambda: y, self)
+        n, group, xs = self._a2a_begin(x, axis, split_dim, concat_dim)
+        inp, out, host = self._stage(xs, xs.shape)
+        work = td.all_to_all_single(out, inp, group=group, async_op=True)
+
+        def finish():
+            work.wait()
+            got = out.to(x.device) if host else out
+            return self._a2a_end(got, x, n, split_dim, concat_dim)
+        return PendingAllToAll(finish, self, keep=(inp, out))
+
     def ppermute(self, x, axis: Optional[AxisName],
                  perm: Sequence[Tuple[int, int]]):
         """Send to axis index dst from axis index src for each (src, dst);
@@ -327,6 +380,33 @@ class Dist:
         if n == 1:
             return x
         return self.ppermute(x, axis, [(i, (i + shift) % n) for i in range(n)])
+
+
+class PendingAllToAll:
+    """A started all-to-all (``Dist.all_to_all_start``): ``wait()`` returns
+    its result, once. `keep` holds the tensors the collective still reads
+    and writes until then; a handle made with `dist` counts in its
+    ``pending``."""
+
+    def __init__(self, finish, dist: Optional[Dist] = None, keep=()):
+        self._finish, self._dist, self._keep = finish, dist, keep
+        if dist is not None:
+            dist.pending += 1
+
+    @classmethod
+    def done(cls, y) -> "PendingAllToAll":
+        """A handle whose result is already there."""
+        return cls(lambda: y)
+
+    def wait(self):
+        if self._finish is None:
+            raise RuntimeError("PendingAllToAll.wait() called twice")
+        finish, self._finish = self._finish, None
+        y = finish()
+        self._keep = ()
+        if self._dist is not None:
+            self._dist.pending -= 1
+        return y
 
 
 class _Psum(torch.autograd.Function):

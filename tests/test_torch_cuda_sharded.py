@@ -7,7 +7,10 @@ and cross-attention shard shapes on the 2x2 mesh, and the merge of
 two shards through ``lse_combine`` over a two-rank KV axis against the
 normalised kernel over the whole cache; and every collective of the ``Dist`` on CUDA tensors, over
 gloo (four ranks on one card) and, with four cards, over nccl, against the
-numpy definitions that ``test_torch_dist.py`` holds the CPU ranks to. This file imports no JAX:
+numpy definitions that ``test_torch_dist.py`` holds the CPU ranks to; and
+the split all-to-all (``Dist.all_to_all_start`` / ``wait``) against the
+synchronous one on CUDA tensors, over gloo (four ranks on one card) and
+over nccl (two cards, one rank each). This file imports no JAX:
 
     python -m pytest -q -m cuda tests/test_torch_cuda_sharded.py
 """
@@ -162,3 +165,22 @@ def test_dist_collectives_on_cards(cuda, transport):
         for r in range(N_RANKS):
             np.testing.assert_array_equal(out[r][name], expected(name, r),
                                           err_msg=f"{name} on rank {r}")
+
+
+@pytest.mark.parametrize("transport", ["gloo", "nccl"])
+def test_split_all_to_all_on_cards(cuda, transport):
+    """``all_to_all_start`` / ``wait`` equals ``all_to_all`` bit for bit on
+    CUDA tensors, is observed and counted as it, keeps two handles in
+    flight on one group under a psum on another, and refuses a gradient
+    and a second ``wait()``: over gloo on a 2x2 mesh on one card, over
+    nccl on a (2, 1) mesh, one rank a card (the data axis of 2 carries
+    the all-to-alls)."""
+    if transport == "nccl" and torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: nccl takes one rank a card")
+    from repro_torch.launch import serve
+    from torch_dbo_workers import split_a2a_rank
+    shape = (2, 2) if transport == "gloo" else (2, 1)
+    out = serve.spawn(split_a2a_rank, mesh_shape=shape, transport=transport,
+                      device="cuda", timeout=300)
+    for r, checks in enumerate(out):
+        assert all(checks.values()), (r, [k for k, ok in checks.items() if not ok])

@@ -616,6 +616,14 @@ def test_chip_smoke_sharded_phase_rehearses_on_cpu(monkeypatch):
     assert jobs["fp8"]["references_replay_expert_choices"] is True
     assert jobs["f32"]["references_replay_expert_choices"] is False
     assert jobs["f32"]["tokens_the_single_device_routes_otherwise"]["total"] == 0
+    # the DBO sub-run of the bf16 job: bitwise two plain steps of B/2 (the
+    # phase raises otherwise), their bytes, and a profile of each
+    sub = out["dbo"]["bf16"]
+    assert sub["steps"] == chip_smoke.DBO_SUBRUN_STEPS
+    assert sub["collectives_per_step"]["dispatch"]["bytes"] == pred["dispatch_bf16"]
+    assert sub["collectives_per_step"]["combine"]["calls"] == 2 * 2
+    assert set(sub["profile_dbo"]) == set(sub["profile_plain_pair"])
+    assert len(sub["ranks_wall_ms_median"]) == 4
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
