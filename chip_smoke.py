@@ -121,7 +121,15 @@ Phases, each printing its own lines before the last:
      (deepseek-v3, 192 clusters x 64 scenarios x 84 batches: 1,032,192 TPOT
      cells) with ``TorchGridEngine`` in float64 on the card, and holds the
      card to the engine's CPU path on one block of 8 clusters, with and
-     without DBO and on a Zipf-skewed scenario;
+     without DBO and on a Zipf-skewed scenario; then ``cost.solve`` asks
+     the paper's question through the port's search (``api.solve_levels``
+     with the torch backend on the card): fig14's grid (deepseek-v3 at 61
+     layers, 64 H100s, the four topologies, the six ``SCENARIOS``, levels
+     noopt and dbo+sd) and the Pareto sweep of ``pareto.sweep_networks``,
+     each held field by field to the same call with ``backend="numpy"``,
+     throughput per cost from ``tco.cluster_tco`` and the switchless gain
+     over scale-up logged; then ``examples/quickstart_torch.py`` runs on
+     the card in a subprocess;
  17. the dry run (after the sharded serving phases): ``dryrun`` traces the
      cell ``sharded.olmoe-1b-7b`` served, one rank of its 2x2 mesh on a
      fake process group with fake tensors (``launch.dryrun``, in a process
@@ -2710,6 +2718,171 @@ def sweep_grid_phase(torch, smi, device="cuda", layers=None):
     return res
 
 
+COST_TOPOLOGIES = ("scale-up", "scale-out", "torus", "fullmesh")
+COST_LEVELS = ("noopt", "dbo+sd")
+COST_XPUS = 64
+COST_RTOL = 1e-9       # floats of two operating points; the rest exactly
+PAPER_GAIN_PCT = (20.6, 56.2)   # switchless over scale-up (paper Fig 14/15)
+
+
+def fields_equal(got, want, path, failures, rtol=COST_RTOL):
+    """Append to `failures` every field where two results differ: dataclasses
+    through ``asdict``, integers, flags and strings exactly, floats within
+    `rtol` relative."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(want):
+        if not dataclasses.is_dataclass(got):
+            failures.append(f"{path}: {got!r} against {want!r}")
+            return
+        got, want = dataclasses.asdict(got), dataclasses.asdict(want)
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or got.keys() != want.keys():
+            failures.append(f"{path}: keys differ")
+            return
+        for k in want:
+            fields_equal(got[k], want[k], f"{path}.{k}", failures, rtol)
+    elif isinstance(want, (list, tuple)):
+        if not isinstance(got, (list, tuple)) or len(got) != len(want):
+            failures.append(f"{path}: lengths differ")
+            return
+        for i, (g, w) in enumerate(zip(got, want)):
+            fields_equal(g, w, f"{path}[{i}]", failures, rtol)
+    elif isinstance(want, float) and not isinstance(got, bool):
+        same = (got == want or (math.isfinite(want) and want != 0.0
+                                and abs(got - want) <= rtol * abs(want)))
+        if not same:
+            failures.append(f"{path}: {got!r} against {want!r}")
+    elif type(got) is not type(want) or got != want:
+        failures.append(f"{path}: {got!r} against {want!r}")
+
+
+def cost_solve_phase(torch, smi, device="cuda", layers=None, sizes=(64, 256),
+                     quickstart=True):
+    """``cost.solve``: the paper's topology comparison through the port's
+    search (``benchmarks/fig14_topology.py``'s grid: deepseek-v3, 64 H100s,
+    ``COST_TOPOLOGIES`` x the six ``SCENARIOS`` x ``COST_LEVELS``), with the
+    torch backend on the card: ``api.solve_levels`` timed on its first and
+    steady calls, then the same call with ``backend="numpy"``, and every
+    operating point held field by field to NumPy's (``fields_equal``).
+    Logs tokens/s per XPU and per cost unit (``tco.cluster_tco``) per
+    topology and scenario, and the gain of torus and full-mesh over
+    scale-up in throughput per cost beside the paper's band (logged, not
+    gated). Then ``pareto.sweep_networks`` at Scenario(40, 512) on `sizes`
+    and its frontier, held to NumPy the same way, and
+    ``examples/quickstart_torch.py`` on `device` in a subprocess (exit 0
+    and ``quickstart OK``). `device`, `layers`, `sizes` and `quickstart`
+    are for the rehearsal on the CPU (``tests/test_torch_chip_cost.py``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import api, pareto, sweep
+    from repro_torch.core.hardware import H100
+    from repro_torch.core.optimizer import SCENARIOS
+    from repro_torch.core.scenario import Scenario
+    from repro_torch.core.tco import cluster_tco
+    from repro_torch.core.topology import make_cluster
+
+    cfg = get_arch("deepseek-v3")
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    n = COST_XPUS
+    clusters = [make_cluster(t, n, H100) for t in COST_TOPOLOGIES]
+    prev_device = sweep.set_default_device(device)
+    failures = []
+    try:
+        def levels(backend):
+            t = time.perf_counter()
+            out = api.solve_levels(cfg, clusters, SCENARIOS, COST_LEVELS,
+                                   api.SearchSpec(backend=backend))
+            return out, time.perf_counter() - t   # the grids come back as NumPy
+
+        card, first_s = levels("torch")
+        steady = [levels("torch")[1] for _ in range(2)]
+        ref, numpy_s = levels("numpy")
+        fields_equal([[[s.point for s in row] for row in card[lv]] for lv in COST_LEVELS],
+                     [[[s.point for s in row] for row in ref[lv]] for lv in COST_LEVELS],
+                     "solve_levels", failures)
+
+        cost = {t: cluster_tco(cl).per_xpu(n) for t, cl in zip(COST_TOPOLOGIES, clusters)}
+        table, gains = {}, {"torus": [], "fullmesh": [], "best_switchless": []}
+        for si, sc in enumerate(SCENARIOS):
+            row = {}
+            for ti, topo in enumerate(COST_TOPOLOGIES):
+                row[topo] = {"cost_per_xpu": cost[topo]}
+                for lv in COST_LEVELS:
+                    op = card[lv][ti][si].point
+                    thpt = op.throughput / n if op else 0.0
+                    row[topo][lv] = {"tok_s_per_xpu": thpt,
+                                     "tok_s_per_cost": thpt / cost[topo],
+                                     "batch": op.batch if op else 0,
+                                     "tpot_ms": op.tpot * 1e3 if op else None}
+                log("cost.solve.point", scenario=sc.name, topology=topo,
+                    **{f"{lv}_{k}": v for lv in COST_LEVELS for k, v in row[topo][lv].items()},
+                    cost_per_xpu=cost[topo])
+            su = row["scale-up"]["dbo+sd"]["tok_s_per_cost"]
+            for topo in ("torus", "fullmesh"):
+                gains[topo].append((row[topo]["dbo+sd"]["tok_s_per_cost"] / su - 1) * 100)
+            gains["best_switchless"].append(max(gains["torus"][-1], gains["fullmesh"][-1]))
+            table[sc.name] = row
+        band = {k: [min(v), max(v)] for k, v in gains.items()}
+        log("cost.solve.switchless_gain", level="dbo+sd", per_scenario_pct=gains,
+            band_pct=band, paper_band_pct=list(PAPER_GAIN_PCT),
+            within_paper_band=PAPER_GAIN_PCT[0] <= band["best_switchless"][0]
+            and band["best_switchless"][1] <= PAPER_GAIN_PCT[1])
+
+        def networks(backend):
+            prev = sweep.set_default_backend(backend)
+            try:
+                t = time.perf_counter()
+                pts = pareto.sweep_networks(cfg, Scenario(40.0, 512), H100, sizes=sizes)
+                return pts, time.perf_counter() - t
+            finally:
+                sweep.set_default_backend(prev)
+
+        pts, pareto_card_s = networks("torch")
+        pts_np, pareto_numpy_s = networks("numpy")
+        fields_equal(pts, pts_np, "sweep_networks", failures)
+        front = pareto.pareto_frontier(pts)
+        fields_equal(front, pareto.pareto_frontier(pts_np), "pareto_frontier", failures)
+        pareto_res = {
+            "sizes": list(sizes), "points": len(pts), "frontier": [
+                {"topology": p.topology, "n_xpus": p.n_xpus, "link_bw": p.link_bw,
+                 "cost_per_xpu": p.cost_per_xpu, "tok_s_per_xpu": p.throughput_per_xpu}
+                for p in front],
+            "fullmesh_on_frontier": any(p.topology == "fullmesh" for p in front),
+            "card_s": pareto_card_s, "numpy_s": pareto_numpy_s}
+        log("cost.solve.pareto", **pareto_res, nvidia_smi=smi)
+    finally:
+        sweep.set_default_device(prev_device)
+
+    res = {"arch": cfg.name, "layers": cfg.num_layers, "of_layers": get_arch(cfg.name).num_layers,
+           "xpus": n, "topologies": list(COST_TOPOLOGIES), "levels": list(COST_LEVELS),
+           "scenarios": [sc.name for sc in SCENARIOS], "device": device,
+           "points": len(COST_LEVELS) * len(clusters) * len(SCENARIOS),
+           "first_s": first_s, "steady_s": _median(steady), "steady_runs_s": steady,
+           "numpy_s": numpy_s, "equal_to_numpy": not failures, "rtol": COST_RTOL,
+           "table": table, "switchless_gain_band_pct": band, "pareto": pareto_res,
+           "nvidia_smi": smi}
+    log("cost.solve", **{k: v for k, v in res.items() if k not in ("table", "pareto")})
+    if quickstart:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, str(ROOT / "examples" / "quickstart_torch.py"),
+                            "--device", device], env=env, capture_output=True, text=True,
+                           timeout=300)
+        ok = r.returncode == 0 and r.stdout.rstrip().endswith("quickstart OK")
+        res["quickstart"] = {"rc": r.returncode, "ok": ok, "wall_s": time.perf_counter() - t,
+                             "stdout_tail": r.stdout[-1500:]}
+        log("cost.solve.quickstart", **{k: v for k, v in res["quickstart"].items()
+                                        if k != "stdout_tail"})
+        if not ok:
+            failures.append(f"quickstart_torch.py: exit {r.returncode}, "
+                            f"stderr {r.stderr[-1500:]!r}")
+    if failures:
+        raise AssertionError(f"cost.solve: {len(failures)} differences: "
+                             + "; ".join(failures[:10]))
+    return res
+
+
 DRYRUN_ARCHS = ("olmoe-1b-7b", "jamba-v0.1-52b")
 
 
@@ -2923,6 +3096,8 @@ def main() -> int:
     grad = phase("kernel.moe_gmm.grad", check_moe_gmm_grad, torch, ref, kmoe, gen)
     # the cost model's product grid on the card, held to the engine's CPU path
     grid = phase("sweep.torch_grid", sweep_grid_phase, torch, smi)
+    # the paper's topology comparison through the port's search, held to NumPy
+    cost = phase("cost.solve", cost_solve_phase, torch, smi)
     free()
     parity = {"olmoe-1b-7b": phase("parity_f32", parity_f32, torch, get_arch, M,
                                    kvcache, convert)}
@@ -3193,7 +3368,7 @@ def main() -> int:
          "train_resume_run": resume_run, "train_resume": resume,
          "profile_train": prof_train, "train_recovery": recovery,
          "timing_floor_ms": floor_ms, "phase_wall_s": walls,
-         "sweep_torch_grid": grid, "dryrun": dry,
+         "sweep_torch_grid": grid, "cost_solve": cost, "dryrun": dry,
          "profile": profiles, "kernels": kernels}, indent=1, default=str))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 """The serving scenario of the cost model: the port's copy of the
-``Scenario`` dataclass of ``repro.core.optimizer``, alone (the search and
-selection of that module stay in the NumPy reference)."""
+``Scenario`` dataclass of ``repro.core.optimizer``. It lives in a module of
+its own so that the grid engine reads it without the search; the port's
+``optimizer`` imports it from here."""
 from __future__ import annotations
 
 from dataclasses import dataclass

@@ -1,11 +1,12 @@
 """The product-grid engine of the cost model in PyTorch: the port of
 ``repro.core.sweep_jax``, in float64 on the card or on the CPU.
 
-``sweep.GridEval(backend="jax")`` hands its two heavy primitives (the
-no-overlap duration sums and the DBO makespan) to ``JaxGridEngine``;
-``TorchGridEngine`` has its interface and adds ``tpot``, the arithmetic of
-``GridEval.best_iteration`` and ``GridEval.tpot``, so that a user of the
-port gets a TPOT grid without the NumPy search. One op table and a list of
+The port's ``sweep.GridEval(backend="torch")`` (the default) hands its two
+heavy primitives (the no-overlap duration sums and the DBO makespan) to
+``TorchGridEngine``, as the reference's ``backend="jax"`` hands them to
+``JaxGridEngine``; the engine also has ``tpot``, the arithmetic of
+``GridEval.best_iteration`` and ``GridEval.tpot``, so that a TPOT grid
+needs no search around it. One op table and a list of
 clusters are lowered to stacked arrays (``lower_grid``: the table's
 ``coeff_pytree`` columns, each cluster's collective menus as (alpha,
 m_coeff, beta) triples, the XPU roofline peaks), and the grid is evaluated

@@ -1,17 +1,25 @@
-"""Failure injection for the training drills.
+"""Failure injection for the training drills and the serving-side fault
+sweeps.
 
-The port's own copy of ``WorkerFailure`` and ``FailureInjector`` from
-``repro.faults``. The serving-side ``sample_faultset`` stays behind: it
-draws from the cost model's component inventory, which the port does not
-carry. Everything here is deterministic given its seed: the injector takes
-explicit step indices or a seed, never the clock or global random state.
+The port's own copy of ``repro.faults``: ``WorkerFailure`` and
+``FailureInjector`` drive the training recovery loop, and
+``sample_faultset`` draws seeded random ``FaultSet``s from the component
+inventory that ``core.availability`` prices (the fault plans of
+``core.traffic``). Everything here is deterministic given its seed: the
+injector takes explicit step indices or a seed, never the clock or global
+random state.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List
+from typing import TYPE_CHECKING, Dict, List, Optional, Tuple
 
 import numpy as np
+
+# annotations only: a run-time import would cycle (core imports traffic,
+# which imports this module)
+if TYPE_CHECKING:
+    from repro_torch.core.topology import Cluster, FaultSet
 
 
 class WorkerFailure(RuntimeError):
@@ -39,3 +47,22 @@ class FailureInjector:
         rng = np.random.default_rng(seed)
         hits = np.nonzero(rng.random(n_steps) < rate)[0]
         return cls(fail_at=[int(s) for s in hits])
+
+
+def sample_faultset(cluster: Cluster, *, exposure_h: float,
+                    seed: int = 0,
+                    mtbf_mttr: Optional[Dict[str, Tuple[float, float]]]
+                    = None) -> FaultSet:
+    """Draw one seeded random `FaultSet` for `cluster`: each component
+    class fails Poisson(count x exposure_h / MTBF) times over the exposure
+    window, mapped onto the serving model's fault axes by the same
+    blast-radius rules the availability enumeration uses
+    (`availability.faultset_for_counts`). Deterministic per seed."""
+    from repro_torch.core.availability import (component_inventory,
+                                               faultset_for_counts)
+    if exposure_h < 0:
+        raise ValueError(f"exposure_h must be >= 0, got {exposure_h}")
+    rng = np.random.default_rng(seed)
+    counts = {c.name: int(rng.poisson(c.count * exposure_h / c.mtbf_h))
+              for c in component_inventory(cluster, mtbf_mttr)}
+    return faultset_for_counts(cluster, counts)

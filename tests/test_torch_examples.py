@@ -32,3 +32,13 @@ def test_train_lm_example_on_cpu(tmp_path):
     out = run_example("train_lm_torch.py", "--steps", "30", "--layers", "2",
                       "--inject-failure", "--ckpt-dir", str(tmp_path))
     assert "recovered from 1 failure(s)" in out and "loss:" in out
+
+
+def test_quickstart_example_on_cpu():
+    """The analysis on the torch backend's CPU grids, the reduced model's
+    loss, prefill and decode, and the kernel's plain version."""
+    out = run_example("quickstart_torch.py")
+    assert "grids on cpu" in out and "ran the plain version" in out
+    for topo in ("scale-up", "scale-out", "torus", "fullmesh"):
+        assert f"  {topo}" in out
+    assert out.rstrip().endswith("quickstart OK")

@@ -14,7 +14,7 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "examples").glob("*_torch.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_torch)|"
     r"from\s+repro(\.|\s)(?!_torch)|import\s+ml_dtypes\b|from\s+ml_dtypes\b)",
@@ -23,6 +23,10 @@ FORBIDDEN = re.compile(
 
 COST_MODEL = ("alphabeta", "collectives", "hardware", "compute_model", "workload",
               "optable", "fabric", "topology", "overlap", "specdec", "placement")
+# the search and selection over the cost model
+SEARCH = ("tco", "optimizer", "sweep", "api", "availability", "pareto", "future",
+          "traffic")
+EXAMPLES = ("quickstart_torch.py", "serve_moe_torch.py", "train_lm_torch.py")
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -36,7 +40,8 @@ def test_every_port_module_is_checked():
     configs of the dense, RWKV, ViT-patch and encoder-decoder models, the
     training loop and checkpoints, the multi-device Dist, specs and
     launchers, the dry run, its roofline and collective counter, and the
-    cost model's copies and grid engine among them."""
+    cost model's copies, its search and grid engine, and the port's
+    examples among them."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in ("models/layers/rwkv.py", "models/layers/attention.py",
                 "configs/deepseek_67b.py", "configs/minitron_8b.py",
@@ -46,8 +51,11 @@ def test_every_port_module_is_checked():
                 "sharding/dist.py", "sharding/specs.py", "launch/mesh.py",
                 "launch/steps.py", "launch/serve.py", "launch/dryrun.py",
                 "sharding/counting.py", "analysis/roofline.py", "core/sweep_torch.py",
-                "core/scenario.py", *(f"core/{m}.py" for m in COST_MODEL)):
+                "core/scenario.py", "faults.py",
+                *(f"core/{m}.py" for m in COST_MODEL + SEARCH)):
         assert f"src/repro_torch/{mod}" in names, mod
+    for ex in EXAMPLES:
+        assert f"examples/{ex}" in names, ex
     assert "chip_smoke.py" in names
 
 
@@ -73,6 +81,9 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.launch.dryrun, repro_torch.analysis.roofline\n"
             "import repro_torch.core.sweep_torch, repro_torch.core.topology\n"
             "import repro_torch.core.optable, repro_torch.core.scenario\n"
+            "import repro_torch.faults, repro_torch.core\n"
+            "import repro_torch.core.traffic, repro_torch.core.pareto\n"
+            "import repro_torch.core.future, repro_torch.core.availability\n"
             "from repro_torch.configs import ARCHS\n"
             "assert len(ARCHS) == 11\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
