@@ -878,16 +878,24 @@ def all_finite(torch, caches) -> bool:
                for leaves in layer.values() for t in leaves.values())
 
 
-def reset_counts(kmoe, kfd):
-    kmoe.reset_counts()
-    kfd.launches = 0
+def reset_counts():
+    """Zero the kernel wrappers' launch counts (``repro_torch.tracing``)."""
+    from repro_torch import tracing
+    tracing.reset()
 
 
-def read_counts(kmoe, kfd):
-    return {"moe_gmm": kmoe.launches, "flash_decode": kfd.launches}
+def read_counts(lse=False):
+    """The kernel wrappers' launches since ``reset_counts``; with `lse`
+    ``flash_decode_lse``'s too."""
+    from repro_torch import tracing
+    c = tracing.counters()
+    out = {"moe_gmm": c["moe_gmm.launches"], "flash_decode": c["flash_decode.launches"]}
+    if lse:
+        out["flash_decode_lse"] = c["flash_decode_lse.launches"]
+    return out
 
 
-def main_path(torch, get_arch, M, Engine, kmoe, kfd, arch="olmoe-1b-7b",
+def main_path(torch, get_arch, M, Engine, kmoe, arch="olmoe-1b-7b",
               lens=None, new_tokens=32, max_seq=512, n_requests=16, layers=None):
     """`arch` at its published widths, bf16, random weights from SEED, its
     depth cut to `layers` where given, served by ``Engine(max_batch=8,
@@ -939,12 +947,12 @@ def main_path(torch, get_arch, M, Engine, kmoe, kfd, arch="olmoe-1b-7b",
     for p in prompts:
         eng.submit(p, max_new_tokens=new_tokens)
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(kmoe, kfd)
+    reset_counts()
     t0 = time.perf_counter()
     out = eng.run()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = read_counts(kmoe, kfd)
+    launches = read_counts()
     variants = dict(kmoe.variant_launches)
     skipped = kmoe.skipped_counter("cuda").tolist()   # set to 0 with the counts
 
@@ -1064,7 +1072,7 @@ def clone(convert, caches):
     return convert.tree_map(lambda t: t.clone(), caches)
 
 
-def dbo_phase(torch, M, kvcache, convert, dbo, kmoe, kfd, cfg, params,
+def dbo_phase(torch, M, kvcache, convert, dbo, cfg, params,
               prompt_len=64, steps=8, seq=128, tag="dbo"):
     """`cfg` on `params`: two microbatches of 4 at one prompt length. The DBO
     step, on its own copy of the caches, must give bitwise the tokens and
@@ -1086,7 +1094,7 @@ def dbo_phase(torch, M, kvcache, convert, dbo, kmoe, kfd, cfg, params,
     mine = [clone(convert, c) for c in caches]
     ta, tb, da, db = toks[0], toks[1], toks[0], toks[1]
     plain_s, dbo_s = [], []
-    reset_counts(kmoe, kfd)
+    reset_counts()
     for i in range(steps):
         pos = prompt_len + i
         torch.cuda.synchronize()
@@ -1096,14 +1104,14 @@ def dbo_phase(torch, M, kvcache, convert, dbo, kmoe, kfd, cfg, params,
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         if i == 0:
-            launches_plain = read_counts(kmoe, kfd)
-            reset_counts(kmoe, kfd)
+            launches_plain = read_counts()
+            reset_counts()
         da, db, mine[0], mine[1] = dbo.dbo_decode_step(
             params, mine[0], mine[1], da, db, pos, cfg, plan, dist)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         if i == 0:
-            launches = read_counts(kmoe, kfd)
+            launches = read_counts()
         plain_s.append(t1 - t0)
         dbo_s.append(t2 - t1)
         if not (torch.equal(da, ta) and torch.equal(db, tb)):
@@ -1133,7 +1141,7 @@ def dbo_phase(torch, M, kvcache, convert, dbo, kmoe, kfd, cfg, params,
     return res
 
 
-def specdec_phase(torch, M, kvcache, convert, specdec, kmoe, kfd, cfg, params,
+def specdec_phase(torch, M, kvcache, convert, specdec, cfg, params,
                   batch, prompt_len, seq, n_tokens=17, spec_m=4):
     """SD on the card at `batch` rows of `prompt_len` tokens: untrained heads
     and an oracle draft (the greedy continuation), each equal to greedy
@@ -1169,13 +1177,13 @@ def specdec_phase(torch, M, kvcache, convert, specdec, kmoe, kfd, cfg, params,
         dec = specdec.SDDecoder(cfg, params, spec_m=spec_m, draft_fn=draft_fn,
                                 seed=SEED)
         caches = clone(convert, c)
-        reset_counts(kmoe, kfd)
+        reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         toks, _, stats = dec.generate(caches, tok0, prompt_len, n_tokens - 1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = read_counts(kmoe, kfd)
+        launches = read_counts()
         got = torch.cat([tok0, toks], dim=1)
         if not torch.equal(got, ref[:, :n_tokens]):
             raise AssertionError(f"specdec {cfg.name} {name}: differs from greedy")
@@ -1195,7 +1203,7 @@ def specdec_phase(torch, M, kvcache, convert, specdec, kmoe, kfd, cfg, params,
     return res
 
 
-def prefill_patches(torch, get_arch, M, kvcache, kmoe, kfd, arch="internvl2-76b",
+def prefill_patches(torch, get_arch, M, kvcache, arch="internvl2-76b",
                     layers=16, batch=2, text=64, steps=16):
     """The ViT-patch frontend at published widths, `layers` layers: `batch`
     rows of ``n_frontend_tokens`` patch embeddings (random, at the token
@@ -1219,13 +1227,13 @@ def prefill_patches(torch, get_arch, M, kvcache, kmoe, kfd, arch="internvl2-76b"
     patches = torch.randn((batch, pf, cfg.d_model), generator=gen, device="cuda",
                           dtype=torch.bfloat16).mul_(0.02)
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(kmoe, kfd)
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, caches = M.prefill_logits(params, {"tokens": tokens, "patches": patches}, cfg)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    prefill_launches = read_counts(kmoe, kfd)
+    prefill_launches = read_counts()
     lg = logits[..., :cfg.vocab_size]
     tokens_only, _ = M.prefill_logits(params, {"tokens": tokens}, cfg)
     moved = max_err(lg, tokens_only[..., :cfg.vocab_size])
@@ -1234,7 +1242,7 @@ def prefill_patches(torch, get_arch, M, kvcache, kmoe, kfd, arch="internvl2-76b"
                              f"the patches ({moved})")
     tok = lg.argmax(-1).to(torch.int32)
     caches = kvcache.pad_to_capacity(cfg, caches, S, S + steps + 1)
-    reset_counts(kmoe, kfd)
+    reset_counts()
     step_s, out = [], [tok]
     for i in range(steps):
         torch.cuda.synchronize()
@@ -1243,7 +1251,7 @@ def prefill_patches(torch, get_arch, M, kvcache, kmoe, kfd, arch="internvl2-76b"
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         out.append(tok)
-    launches = read_counts(kmoe, kfd)
+    launches = read_counts()
     want = {k: n * steps for k, n in kernel_layers(cfg).items()}
     toks = torch.cat(out, dim=1)
     if prefill_launches != {"moe_gmm": 0, "flash_decode": 0} or launches != want:
@@ -1265,7 +1273,7 @@ def prefill_patches(torch, get_arch, M, kvcache, kmoe, kfd, arch="internvl2-76b"
     return res
 
 
-def mla_share(torch, eng, prof, kmoe, kfd):
+def mla_share(torch, eng, prof):
     """deepseek-v3's decode attention (``mla_decode``: projections, the
     decompression of the latent cache and plain-torch attention over it,
     no kernel of the port) per wave: the profiler's device time of one
@@ -1280,11 +1288,11 @@ def mla_share(torch, eng, prof, kmoe, kfd):
     x = torch.randn((eng.max_batch, 1, cfg.d_model), generator=gen, device="cuda",
                     dtype=torch.bfloat16)
     cache = {n: t.clone() for n, t in eng.caches[0]["mixer"].items()}
-    reset_counts(kmoe, kfd)
+    reset_counts()
     ms = device_busy_ms(torch, lambda: mla.mla_decode(
         eng.params["stack"][0]["mixer"], x, cache, eng.pos, cfg,
         null_plan("decode"), NullDist()), 4)
-    if read_counts(kmoe, kfd) != {"moe_gmm": 0, "flash_decode": 0}:
+    if read_counts() != {"moe_gmm": 0, "flash_decode": 0}:
         raise AssertionError("mla_decode launched a kernel of the port")
     n = cfg.num_layers
     res = {"arch": cfg.name, "layers": n, "slots": eng.max_batch,
@@ -1656,8 +1664,6 @@ def sharded_dbo_subrun(ctx, steps_n=DBO_SUBRUN_STEPS):
     import torch
     from repro_torch.configs.base import ShapeCell
     from repro_torch.convert import tree_leaves
-    from repro_torch.kernels import flash_decode as kfd
-    from repro_torch.kernels import moe_gmm as kmoe
     from repro_torch.launch import steps
     from repro_torch.serving import kvcache
     mesh, dist, dev, cfg, plan = (ctx[k] for k in ("mesh", "dist", "dev", "cfg", "plan"))
@@ -1677,14 +1683,13 @@ def sharded_dbo_subrun(ctx, steps_n=DBO_SUBRUN_STEPS):
             torch.cuda.synchronize(dev)
 
     def counted(fn):
-        reset_counts(kmoe, kfd)
-        kfd.lse_launches = 0
+        reset_counts()
         dist.reset()
         sync()
         t = time.perf_counter()
         out = fn()
         sync()
-        launches = dict(read_counts(kmoe, kfd), flash_decode_lse=kfd.lse_launches)
+        launches = read_counts(lse=True)
         return out, time.perf_counter() - t, launches, dist.snapshot()
 
     res = {"steps": steps_n, "microbatch_rows_local": int(pa.shape[0]), "failures": []}
@@ -2400,7 +2405,7 @@ def train_flops(cfg, tokens: int, seq: int) -> float:
     return tokens * (6 * n + 12 * cfg.num_layers * cfg.num_heads * cfg.head_dim * seq)
 
 
-def train_phase(torch, get_arch, convert, kmoe, kfd, layers, ckpt_dir="", batch=8,
+def train_phase(torch, get_arch, convert, kmoe, layers, ckpt_dir="", batch=8,
                 seq=512, steps=10, ckpt_every=0, arch="olmoe-1b-7b",
                 tag="train.olmoe-1b-7b"):
     """The port's ``Trainer`` at `arch`'s published widths, `layers` layers,
@@ -2438,7 +2443,7 @@ def train_phase(torch, get_arch, convert, kmoe, kfd, layers, ckpt_dir="", batch=
     tr = TimedTrainer(cfg, tc, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    reset_counts(kmoe, kfd)
+    reset_counts()
     step_s, saves_before = [], 0
     for i in range(steps):
         tokens = data.batch(tr.step_idx)
@@ -2458,7 +2463,7 @@ def train_phase(torch, get_arch, convert, kmoe, kfd, layers, ckpt_dir="", batch=
             if silent:
                 raise AssertionError(f"train: no gradient reached {silent[:8]} "
                                      f"({len(silent)} expert weights)")
-    launches = read_counts(kmoe, kfd)
+    launches = read_counts()
     variants = dict(kmoe.variant_launches)
     n_moe = kernel_layers(cfg)["moe_gmm"]
     losses = tr.losses
@@ -3109,16 +3114,16 @@ def main() -> int:
 
     # olmoe-1b-7b: the main path, its profile, DBO and SD on its weights
     main_res, eng, prompts = phase("main_path", main_path, torch, get_arch, M,
-                                   Engine, kmoe, kfd)
+                                   Engine, kmoe)
     prof = phase("profile", profile_waves, torch, eng, prompts,
                  main_res["decode_ms_per_wave_median"])
     params, cfg = eng.params, eng.cfg
     del eng
     free()
-    dbo_res = phase("dbo", dbo_phase, torch, M, kvcache, convert, dbo, kmoe, kfd,
+    dbo_res = phase("dbo", dbo_phase, torch, M, kvcache, convert, dbo,
                     cfg, params)
     sd = {"olmoe-1b-7b": phase("specdec.olmoe-1b-7b", specdec_phase, torch, M,
-                               kvcache, convert, specdec, kmoe, kfd, cfg, params,
+                               kvcache, convert, specdec, cfg, params,
                                batch=4, prompt_len=32, seq=96)}
     del params
     free()
@@ -3147,7 +3152,7 @@ def main() -> int:
                                new_tokens=40, max_seq=1152)}
     for arch, kw in paths.items():
         res, eng, prompts = phase(f"main_path.{arch}", main_path, torch, get_arch,
-                                  M, Engine, kmoe, kfd, arch=arch, **kw)
+                                  M, Engine, kmoe, arch=arch, **kw)
         profiles[arch] = phase(f"profile.{arch}", profile_waves, torch, eng,
                                prompts, res["decode_ms_per_wave_median"],
                                tag=f"profile.{arch}")
@@ -3157,7 +3162,7 @@ def main() -> int:
                 raise AssertionError("gemma3-1b: no request wrapped the ring")
             sd["gemma3-1b"] = phase(
                 "specdec.gemma3-1b", specdec_phase, torch, M, kvcache, convert,
-                specdec, kmoe, kfd, eng.cfg, eng.params, batch=1,
+                specdec, eng.cfg, eng.params, batch=1,
                 prompt_len=1012, seq=1100)
         del eng
         free()
@@ -3174,25 +3179,25 @@ def main() -> int:
     ds, jb = "deepseek-v3", "jamba-v0.1-52b"
     traffic = dict(n_requests=12, new_tokens=16)
     res, eng, prompts = phase(f"main_path.{ds}", main_path, torch, get_arch, M,
-                              Engine, kmoe, kfd, arch=ds, layers=2, **traffic)
+                              Engine, kmoe, arch=ds, layers=2, **traffic)
     others[ds] = res
     profiles[ds] = phase(f"profile.{ds}", profile_waves, torch, eng, prompts,
                          res["decode_ms_per_wave_median"], tag=f"profile.{ds}")
-    mla = phase(f"mla_share.{ds}", mla_share, torch, eng, profiles[ds], kmoe, kfd)
-    dbo_ds = phase(f"dbo.{ds}", dbo_phase, torch, M, kvcache, convert, dbo, kmoe,
-                   kfd, eng.cfg, eng.params, tag=f"dbo.{ds}")
+    mla = phase(f"mla_share.{ds}", mla_share, torch, eng, profiles[ds])
+    dbo_ds = phase(f"dbo.{ds}", dbo_phase, torch, M, kvcache, convert, dbo,
+                   eng.cfg, eng.params, tag=f"dbo.{ds}")
     del eng
     free()
 
     # jamba-v0.1-52b: one period of 8 (7 Mamba layers, 1 attention; 4 MoE),
     # 13.3 B params; SD at one row rolls the SSM state back
     res, eng, prompts = phase(f"main_path.{jb}", main_path, torch, get_arch, M,
-                              Engine, kmoe, kfd, arch=jb, layers=8, **traffic)
+                              Engine, kmoe, arch=jb, layers=8, **traffic)
     others[jb] = res
     profiles[jb] = phase(f"profile.{jb}", profile_waves, torch, eng, prompts,
                          res["decode_ms_per_wave_median"], tag=f"profile.{jb}")
     sd[jb] = phase(f"specdec.{jb}", specdec_phase, torch, M, kvcache, convert,
-                   specdec, kmoe, kfd, eng.cfg, eng.params, batch=1,
+                   specdec, eng.cfg, eng.params, batch=1,
                    prompt_len=64, seq=96)
     del eng
     free()
@@ -3213,7 +3218,7 @@ def main() -> int:
     # layers (~29 B params, ~55 GiB; all 95 would be ~134 GB)
     for arch, layers in (("minitron-8b", None), ("deepseek-67b", 40)):
         res, eng, prompts = phase(f"main_path.{arch}", main_path, torch, get_arch, M,
-                                  Engine, kmoe, kfd, arch=arch, layers=layers, **traffic)
+                                  Engine, kmoe, arch=arch, layers=layers, **traffic)
         others[arch] = res
         profiles[arch] = phase(f"profile.{arch}", profile_waves, torch, eng, prompts,
                                res["decode_ms_per_wave_median"], tag=f"profile.{arch}")
@@ -3223,19 +3228,19 @@ def main() -> int:
     # SD at one row rolls the WKV state and both token shifts back
     rw, sm = "rwkv6-1.6b", "seamless-m4t-medium"
     res, eng, prompts = phase(f"main_path.{rw}", main_path, torch, get_arch, M,
-                              Engine, kmoe, kfd, arch=rw, **traffic)
+                              Engine, kmoe, arch=rw, **traffic)
     others[rw] = res
     profiles[rw] = phase(f"profile.{rw}", profile_waves, torch, eng, prompts,
                          res["decode_ms_per_wave_median"], tag=f"profile.{rw}")
     sd[rw] = phase(f"specdec.{rw}", specdec_phase, torch, M, kvcache, convert,
-                   specdec, kmoe, kfd, eng.cfg, eng.params, batch=1,
+                   specdec, eng.cfg, eng.params, batch=1,
                    prompt_len=64, seq=96)
     del eng
     free()
     # seamless-m4t-medium whole (12 encoder + 12 decoder layers): a second
     # flash_decode per decoder layer, cross-attention over max_seq positions
     res, eng, prompts = phase(f"main_path.{sm}", main_path, torch, get_arch, M,
-                              Engine, kmoe, kfd, arch=sm, **traffic)
+                              Engine, kmoe, arch=sm, **traffic)
     others[sm] = res
     profiles[sm] = phase(f"profile.{sm}", profile_waves, torch, eng, prompts,
                          res["decode_ms_per_wave_median"], tag=f"profile.{sm}")
@@ -3245,7 +3250,7 @@ def main() -> int:
     # engine path is deepseek-67b's dense g = 8 path
     vl = "internvl2-76b"
     patches = phase(f"prefill_patches.{vl}", prefill_patches, torch, get_arch, M,
-                    kvcache, kmoe, kfd)
+                    kvcache)
     free()
     # f32 parity: rwkv6 at 2 layers, prompts past two scan chunks; seamless
     # at 2 encoder + 2 decoder layers on random frames
@@ -3261,7 +3266,7 @@ def main() -> int:
     # ~57 GB), 10 steps of 8 x 512 tokens, and one more step profiled
     from repro_torch.training.data import DataConfig
     train, tr = phase("train.olmoe-1b-7b", train_phase, torch, get_arch, convert,
-                      kmoe, kfd, layers=TRAIN_LAYERS)
+                      kmoe, layers=TRAIN_LAYERS)
     data_cfg = DataConfig(vocab_size=tr.cfg.vocab_size, seq_len=512, global_batch=8,
                           seed=SEED)
     prof_train = phase("profile.train", profile_train_step, torch, tr, data_cfg)
@@ -3275,7 +3280,7 @@ def main() -> int:
     torch.use_deterministic_algorithms(True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt") as tmp:
         resume_run, tr = phase("train.resume_run", train_phase, torch, get_arch, convert,
-                               kmoe, kfd, layers=CKPT_LAYERS, ckpt_dir=tmp, ckpt_every=4,
+                               kmoe, layers=CKPT_LAYERS, ckpt_dir=tmp, ckpt_every=4,
                                tag="train.resume_run")
         resume, tr2 = phase("train.resume", resume_phase, torch, convert, tr, data_cfg)
         del tr, tr2

@@ -21,6 +21,7 @@ import math
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs import get_arch, reduced_config
 from repro_torch.convert import tree_leaves
 from repro_torch.core import (H100, Scenario, SearchSpec, make_cluster,
@@ -70,8 +71,7 @@ def model(device):
     gen.manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen,
                            device=device, dtype=torch.int32)
-    kmoe.reset_counts()
-    kfd.launches = 0
+    tracing.reset()
 
     leaves = [p.requires_grad_() for p in tree_leaves(params)]
     loss = M.train_loss(params, {"tokens": tokens}, cfg, remat=False)

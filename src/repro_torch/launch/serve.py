@@ -43,11 +43,10 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs import get_arch, reduced_config
 from repro_torch.configs.base import ShapeCell
 from repro_torch.convert import shard_leaf, tree_leaves
-from repro_torch.kernels import flash_decode as kfd
-from repro_torch.kernels import moe_gmm as kmoe
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.layers.common import dtype_of
@@ -204,13 +203,9 @@ def _sync(dev):
 
 
 def _counts():
-    return {"moe_gmm": kmoe.launches, "flash_decode": kfd.launches,
-            "flash_decode_lse": kfd.lse_launches}
-
-
-def _zero_counts():
-    kmoe.reset_counts()
-    kfd.launches = kfd.lse_launches = 0
+    c = tracing.counters()
+    return {"moe_gmm": c["moe_gmm.launches"], "flash_decode": c["flash_decode.launches"],
+            "flash_decode_lse": c["flash_decode_lse.launches"]}
 
 
 def _hook(dist, name):
@@ -276,7 +271,7 @@ def serve_job(mesh, dist: Dist, dev: torch.device, job: dict,
             mesh)).to(dev, dtype_of(cfg))
 
     def phase(name, fn):
-        _zero_counts()
+        tracing.reset()
         _hook(dist, "reset")
         _sync(dev)
         t = time.perf_counter()

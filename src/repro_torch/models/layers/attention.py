@@ -65,6 +65,7 @@ import math
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import attn_chunk_lse  # noqa: F401  (the JAX decode core)
 from repro_torch.models.layers.common import apply_rope, dtype_of, normal
@@ -214,52 +215,53 @@ def attention_fwd(params, x, cfg, plan: ShardingPlan, dist: Dist, *,
     """Causal self-attention, over the last `window` positions when
     `window` > 0. x: [B, S_loc, D], this rank's positions (all of them on
     one device). Returns (y [B, S_loc, D], cache | None)."""
-    H, hd = cfg.num_heads, cfg.head_dim
-    seq_ax = plan.seq_axis
-    B, s_loc, _ = x.shape
-    q_offset = dist.index(seq_ax) * s_loc
-    pos_local = q_offset + torch.arange(s_loc, device=x.device)
+    with tracing.span("attn"):
+        H, hd = cfg.num_heads, cfg.head_dim
+        seq_ax = plan.seq_axis
+        B, s_loc, _ = x.shape
+        q_offset = dist.index(seq_ax) * s_loc
+        pos_local = q_offset + torch.arange(s_loc, device=x.device)
 
-    cache = None
-    if make_cache:
-        # every KV head, this rank's positions: the decode layout
-        k_c = torch.einsum("bsd,dkh->bksh", x, params["w_k"])
-        v_c = torch.einsum("bsd,dkh->bksh", x, params["w_v"])
-        k_c = apply_rope(k_c.transpose(1, 2), pos_local,
-                         cfg.rope_theta).transpose(1, 2)
-        if window:
-            cache = _window_cache_from_prefill(k_c, v_c, window, plan, dist)
-        else:
-            cache = {"k": k_c.contiguous(), "v": v_c.contiguous()}
+        cache = None
+        if make_cache:
+            # every KV head, this rank's positions: the decode layout
+            k_c = torch.einsum("bsd,dkh->bksh", x, params["w_k"])
+            v_c = torch.einsum("bsd,dkh->bksh", x, params["w_v"])
+            k_c = apply_rope(k_c.transpose(1, 2), pos_local,
+                             cfg.rope_theta).transpose(1, 2)
+            if window:
+                cache = _window_cache_from_prefill(k_c, v_c, window, plan, dist)
+            else:
+                cache = {"k": k_c.contiguous(), "v": v_c.contiguous()}
 
-    if plan.attn_mode == "head_tp":
-        if plan.ring_attn and window == 0 and dist.size(seq_ax) > 1:
-            return _ring_fwd(params, x, cfg, plan, dist, pos_local), cache
-        xg = dist.all_gather(x, seq_ax, dim=1)                     # [B, S, D]
-        S = xg.shape[1]
-        q = (xg @ params["w_q"]).reshape(B, S, -1, hd)             # local heads
-        start, kv_loc = _local_kv_slice(cfg, plan, dist)
-        k = torch.einsum("bsd,dkh->bskh", xg, params["w_k"][:, start:start + kv_loc])
-        v = torch.einsum("bsd,dkh->bskh", xg, params["w_v"][:, start:start + kv_loc])
-        pos = torch.arange(S, device=x.device)
-        q = apply_rope(q, pos, cfg.rope_theta)
-        k = apply_rope(k, pos, cfg.rope_theta)
-        o = flash_attn(q, k, v, causal=True, window=window)
-        # W_o is row-sharded over heads: the reduce-scatter sums the head
-        # partials and scatters the sequence in one collective
-        y = o.reshape(B, S, -1) @ params["w_o"]
-        return dist.reduce_scatter(y, seq_ax, dim=1), cache
+        if plan.attn_mode == "head_tp":
+            if plan.ring_attn and window == 0 and dist.size(seq_ax) > 1:
+                return _ring_fwd(params, x, cfg, plan, dist, pos_local), cache
+            xg = dist.all_gather(x, seq_ax, dim=1)                     # [B, S, D]
+            S = xg.shape[1]
+            q = (xg @ params["w_q"]).reshape(B, S, -1, hd)             # local heads
+            start, kv_loc = _local_kv_slice(cfg, plan, dist)
+            k = torch.einsum("bsd,dkh->bskh", xg, params["w_k"][:, start:start + kv_loc])
+            v = torch.einsum("bsd,dkh->bskh", xg, params["w_v"][:, start:start + kv_loc])
+            pos = torch.arange(S, device=x.device)
+            q = apply_rope(q, pos, cfg.rope_theta)
+            k = apply_rope(k, pos, cfg.rope_theta)
+            o = flash_attn(q, k, v, causal=True, window=window)
+            # W_o is row-sharded over heads: the reduce-scatter sums the head
+            # partials and scatters the sequence in one collective
+            y = o.reshape(B, S, -1) @ params["w_o"]
+            return dist.reduce_scatter(y, seq_ax, dim=1), cache
 
-    q = (x @ params["w_q"]).reshape(B, s_loc, H, hd)
-    k = torch.einsum("bsd,dkh->bskh", x, params["w_k"])
-    v = torch.einsum("bsd,dkh->bskh", x, params["w_v"])
-    q = apply_rope(q, pos_local, cfg.rope_theta)
-    k = apply_rope(k, pos_local, cfg.rope_theta)
-    k = dist.all_gather(k, seq_ax, dim=1)                          # [B, S, KV, hd]
-    v = dist.all_gather(v, seq_ax, dim=1)
-    o = flash_attn(q, k, v, causal=True, window=window, q_offset=q_offset)
-    y = o.reshape(B, s_loc, -1) @ params["w_o"]
-    return y, cache
+        q = (x @ params["w_q"]).reshape(B, s_loc, H, hd)
+        k = torch.einsum("bsd,dkh->bskh", x, params["w_k"])
+        v = torch.einsum("bsd,dkh->bskh", x, params["w_v"])
+        q = apply_rope(q, pos_local, cfg.rope_theta)
+        k = apply_rope(k, pos_local, cfg.rope_theta)
+        k = dist.all_gather(k, seq_ax, dim=1)                          # [B, S, KV, hd]
+        v = dist.all_gather(v, seq_ax, dim=1)
+        o = flash_attn(q, k, v, causal=True, window=window, q_offset=q_offset)
+        y = o.reshape(B, s_loc, -1) @ params["w_o"]
+        return y, cache
 
 
 def _ring_fwd(params, x, cfg, plan: ShardingPlan, dist: Dist, pos_local):
@@ -319,44 +321,45 @@ def attention_decode(params, x, cache, pos, cfg, plan: ShardingPlan,
     (sequence-sharded over ``plan.kv_axis``; a ring [B, KV, W, hd] when
     `window` > 0); pos: scalar or [B] positions of the incoming tokens.
     Returns (y [B, 1, D], cache) with the cache written in place."""
-    hd = cfg.head_dim
-    B = x.shape[0]
-    xt = x[:, 0]
-    p = _positions(pos, B, x.device)                               # [B]
+    with tracing.span("attn"):
+        hd = cfg.head_dim
+        B = x.shape[0]
+        xt = x[:, 0]
+        p = _positions(pos, B, x.device)                               # [B]
 
-    q = (xt @ params["w_q"]).reshape(B, -1, hd)
-    if _head_tp(plan, dist):
-        q = dist.all_gather(q, plan.tp_axis, dim=1)               # [B, H, hd]
-    q = apply_rope(q[:, None], p[:, None], cfg.rope_theta)[:, 0].contiguous()
-    k_new = torch.einsum("bd,dkh->bkh", xt, params["w_k"])
-    v_new = torch.einsum("bd,dkh->bkh", xt, params["w_v"])
-    k_new = apply_rope(k_new[:, None], p[:, None], cfg.rope_theta)[:, 0]
+        q = (xt @ params["w_q"]).reshape(B, -1, hd)
+        if _head_tp(plan, dist):
+            q = dist.all_gather(q, plan.tp_axis, dim=1)               # [B, H, hd]
+        q = apply_rope(q[:, None], p[:, None], cfg.rope_theta)[:, 0].contiguous()
+        k_new = torch.einsum("bd,dkh->bkh", xt, params["w_k"])
+        v_new = torch.einsum("bd,dkh->bkh", xt, params["w_v"])
+        k_new = apply_rope(k_new[:, None], p[:, None], cfg.rope_theta)[:, 0]
 
-    k_c, v_c = cache["k"], cache["v"]
-    S = k_c.shape[2]
-    rows = torch.arange(B, device=x.device)
-    if window:
-        # ring: row pos % W is always in range, no clamp
-        r = p % S
-        k_c[rows, :, r] = k_new
-        v_c[rows, :, r] = v_new
-        o = kops.flash_decode(q, k_c, v_c, torch.clamp(p + 1, max=S).to(torch.int32))
+        k_c, v_c = cache["k"], cache["v"]
+        S = k_c.shape[2]
+        rows = torch.arange(B, device=x.device)
+        if window:
+            # ring: row pos % W is always in range, no clamp
+            r = p % S
+            k_c[rows, :, r] = k_new
+            v_c[rows, :, r] = v_new
+            o = kops.flash_decode(q, k_c, v_c, torch.clamp(p + 1, max=S).to(torch.int32))
+            return _decode_out_proj(o, params, plan, dist, B), cache
+
+        # write at pos on the rank whose shard holds it; every other rank (and a
+        # position past the cache) writes its old row back at the clamped slot
+        local = p - dist.index(plan.kv_axis) * S
+        lc = torch.clamp(local, 0, S - 1)
+        in_range = ((local >= 0) & (local < S))[:, None, None]
+        k_c[rows, :, lc] = torch.where(in_range, k_new, k_c[rows, :, lc])
+        v_c[rows, :, lc] = torch.where(in_range, v_new, v_c[rows, :, lc])
+        length = torch.clamp(local + 1, 0, S).to(torch.int32)
+        if dist.size(plan.kv_axis) > 1:
+            o, m, lsum = kops.flash_decode_lse(q, k_c, v_c, length)
+            o = lse_combine(o, m, lsum, plan.kv_axis, dist)
+        else:
+            o = kops.flash_decode(q, k_c, v_c, length)
         return _decode_out_proj(o, params, plan, dist, B), cache
-
-    # write at pos on the rank whose shard holds it; every other rank (and a
-    # position past the cache) writes its old row back at the clamped slot
-    local = p - dist.index(plan.kv_axis) * S
-    lc = torch.clamp(local, 0, S - 1)
-    in_range = ((local >= 0) & (local < S))[:, None, None]
-    k_c[rows, :, lc] = torch.where(in_range, k_new, k_c[rows, :, lc])
-    v_c[rows, :, lc] = torch.where(in_range, v_new, v_c[rows, :, lc])
-    length = torch.clamp(local + 1, 0, S).to(torch.int32)
-    if dist.size(plan.kv_axis) > 1:
-        o, m, lsum = kops.flash_decode_lse(q, k_c, v_c, length)
-        o = lse_combine(o, m, lsum, plan.kv_axis, dist)
-    else:
-        o = kops.flash_decode(q, k_c, v_c, length)
-    return _decode_out_proj(o, params, plan, dist, B), cache
 
 
 def _decode_out_proj(o, params, plan: ShardingPlan, dist: Dist, B):

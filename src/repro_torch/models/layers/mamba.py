@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.models.layers.common import dtype_of, normal
 from repro_torch.sharding.dist import Dist
 from repro_torch.sharding.plans import ShardingPlan
@@ -129,21 +130,24 @@ def mamba_fwd(params, x, cfg, plan: ShardingPlan, dist: Dist, *,
         raise ValueError("sharded Mamba is Megatron-SP: the sequence axis must "
                          f"be the tp axis ({seq_ax!r} != {tp!r})")
     di, dtr, ds, dc = _dims(cfg)
-    xg = dist.all_gather(x, seq_ax, dim=1)                         # [B, S, D]
-    B, S, _ = xg.shape
-    u = xg @ params["w_x"]                                         # [B, S, di_loc]
-    z = xg @ params["w_z"]
-    conv_w = params["conv_w"]                                      # [dc, di_loc]
-    u_pad = F.pad(u, (0, 0, dc - 1, 0))
-    conv = sum(u_pad[:, i:i + S] * conv_w[i] for i in range(dc)) + params["conv_b"]
-    uc = F.silu(conv.float()).to(u.dtype)
-    b, c, dt_ = _gates(params, uc, plan, dist)
+    with tracing.span("mamba.project"):
+        xg = dist.all_gather(x, seq_ax, dim=1)                     # [B, S, D]
+        B, S, _ = xg.shape
+        u = xg @ params["w_x"]                                     # [B, S, di_loc]
+        z = xg @ params["w_z"]
+        conv_w = params["conv_w"]                                  # [dc, di_loc]
+        u_pad = F.pad(u, (0, 0, dc - 1, 0))
+        conv = sum(u_pad[:, i:i + S] * conv_w[i] for i in range(dc)) + params["conv_b"]
+        uc = F.silu(conv.float()).to(u.dtype)
+        b, c, dt_ = _gates(params, uc, plan, dist)
 
-    h0 = torch.zeros((B, u.shape[-1], ds), dtype=torch.float32, device=x.device)
-    y, h_fin = _ssm_scan(uc.float(), dt_, b, c, params["log_a"],
-                         params["d_skip"], h0)
-    y = (y * F.silu(z.float())).to(x.dtype)
-    out = dist.reduce_scatter(y @ params["w_out"], seq_ax, dim=1)
+    with tracing.span("mamba.scan"):
+        h0 = torch.zeros((B, u.shape[-1], ds), dtype=torch.float32, device=x.device)
+        y, h_fin = _ssm_scan(uc.float(), dt_, b, c, params["log_a"],
+                             params["d_skip"], h0)
+    with tracing.span("mamba.out"):
+        y = (y * F.silu(z.float())).to(x.dtype)
+        out = dist.reduce_scatter(y @ params["w_out"], seq_ax, dim=1)
 
     cache = None
     if make_cache:
@@ -157,19 +161,22 @@ def mamba_decode(params, x, cache, cfg, plan: ShardingPlan, dist: Dist):
     Returns (y [B, 1, D], cache) with the cache written in place (each leaf
     keeps its dtype)."""
     xt = x[:, 0]
-    u = xt @ params["w_x"]                                         # [B, di_loc]
-    z = xt @ params["w_z"]
-    conv_in = torch.cat([cache["conv"], u[:, None]], dim=1)        # [B, dc, di_loc]
-    conv = torch.einsum("bcd,cd->bd", conv_in, params["conv_w"]) + params["conv_b"]
-    uc = F.silu(conv.float()).to(u.dtype)
-    b, c, dt_ = _gates(params, uc, plan, dist)
+    with tracing.span("mamba.project"):
+        u = xt @ params["w_x"]                                     # [B, di_loc]
+        z = xt @ params["w_z"]
+        conv_in = torch.cat([cache["conv"], u[:, None]], dim=1)    # [B, dc, di_loc]
+        conv = torch.einsum("bcd,cd->bd", conv_in, params["conv_w"]) + params["conv_b"]
+        uc = F.silu(conv.float()).to(u.dtype)
+        b, c, dt_ = _gates(params, uc, plan, dist)
 
-    a = -torch.exp(params["log_a"])
-    da = torch.exp(dt_[..., None] * a)                             # [B, di_loc, ds]
-    h = cache["ssm"] * da + (dt_ * uc.float())[..., None] * b[:, None, :]
-    y = torch.einsum("bdn,bn->bd", h, c) + uc.float() * params["d_skip"]
-    y = (y * F.silu(z.float())).to(x.dtype)
-    out = dist.psum(y @ params["w_out"], plan.tp_axis)
-    cache["conv"].copy_(conv_in[:, 1:])
-    cache["ssm"].copy_(h)
+    with tracing.span("mamba.scan"):
+        a = -torch.exp(params["log_a"])
+        da = torch.exp(dt_[..., None] * a)                         # [B, di_loc, ds]
+        h = cache["ssm"] * da + (dt_ * uc.float())[..., None] * b[:, None, :]
+        y = torch.einsum("bdn,bn->bd", h, c) + uc.float() * params["d_skip"]
+        cache["conv"].copy_(conv_in[:, 1:])
+        cache["ssm"].copy_(h)
+    with tracing.span("mamba.out"):
+        y = (y * F.silu(z.float())).to(x.dtype)
+        out = dist.psum(y @ params["w_out"], plan.tp_axis)
     return out[:, None], cache

@@ -28,6 +28,7 @@ import math
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.models.layers.attention import NEG_INF, _positions, flash_attn
 from repro_torch.models.layers.common import apply_rope, dtype_of, normal
 from repro_torch.sharding.dist import Dist
@@ -92,16 +93,21 @@ def mla_fwd(params, x, cfg, plan: ShardingPlan, dist: Dist, *,
     seq_ax = plan.seq_axis
     B, s_loc, _ = x.shape
     start = dist.index(seq_ax) * s_loc
-    q_n, q_r, c_kv, k_r = _qkv(params, x, cfg,
-                               start + torch.arange(s_loc, device=x.device))
-    k, v = _decompress(params, dist.all_gather(c_kv, seq_ax, dim=1), cfg)
-    k_rg = dist.all_gather(k_r, seq_ax, dim=1)
-    q_aug = torch.cat([q_n, q_r], dim=-1)
-    k_aug = torch.cat([k, k_rg[:, :, None].expand(*k.shape[:3], k_rg.shape[-1])],
-                      dim=-1)
-    v_pad = torch.nn.functional.pad(v, (0, q_r.shape[-1]))
-    o = flash_attn(q_aug, k_aug, v_pad, causal=True, q_offset=start)[..., :cfg.head_dim]
-    y = o.reshape(B, s_loc, -1) @ params["w_o"]
+    with tracing.span("mla.project"):
+        q_n, q_r, c_kv, k_r = _qkv(params, x, cfg,
+                                   start + torch.arange(s_loc, device=x.device))
+    with tracing.span("mla.decompress"):
+        k, v = _decompress(params, dist.all_gather(c_kv, seq_ax, dim=1), cfg)
+    with tracing.span("mla.attend"):
+        k_rg = dist.all_gather(k_r, seq_ax, dim=1)
+        q_aug = torch.cat([q_n, q_r], dim=-1)
+        k_aug = torch.cat([k, k_rg[:, :, None].expand(*k.shape[:3], k_rg.shape[-1])],
+                          dim=-1)
+        v_pad = torch.nn.functional.pad(v, (0, q_r.shape[-1]))
+        o = flash_attn(q_aug, k_aug, v_pad, causal=True,
+                       q_offset=start)[..., :cfg.head_dim]
+    with tracing.span("mla.out"):
+        y = o.reshape(B, s_loc, -1) @ params["w_o"]
     cache = {"c_kv": c_kv, "k_rope": k_r} if make_cache else None
     return y, cache
 
@@ -116,20 +122,25 @@ def mla_decode(params, x, cache, pos, cfg, plan: ShardingPlan, dist: Dist):
     hd, rp = cfg.head_dim, cfg.mla_rope_head_dim
     B = x.shape[0]
     p = _positions(pos, B, x.device)                               # [B]
-    q_n, q_r, c_new, kr_new = _qkv(params, x, cfg, p[:, None])
-    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
-    S = c_kv.shape[1]
-    rows = torch.arange(B, device=x.device)
-    at = torch.clamp(p, max=S - 1)
-    c_kv[rows, at] = c_new[:, 0]
-    k_rope[rows, at] = kr_new[:, 0]
+    with tracing.span("mla.project"):
+        q_n, q_r, c_new, kr_new = _qkv(params, x, cfg, p[:, None])
+        c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+        S = c_kv.shape[1]
+        rows = torch.arange(B, device=x.device)
+        at = torch.clamp(p, max=S - 1)
+        c_kv[rows, at] = c_new[:, 0]
+        k_rope[rows, at] = kr_new[:, 0]
 
-    k, v = _decompress(params, c_kv, cfg)                          # [B, S, H, hd]
-    scale = 1.0 / math.sqrt(hd + rp)
-    s = (torch.einsum("bhd,bshd->bhs", q_n[:, 0].float(), k.float())
-         + torch.einsum("bhr,bsr->bhs", q_r[:, 0].float(), k_rope.float())) * scale
-    valid = torch.arange(S, device=x.device)[None, :] <= p[:, None]   # [B, S]
-    s = torch.where(valid[:, None], s, NEG_INF)
-    o = torch.einsum("bhs,bshd->bhd", torch.softmax(s, dim=-1), v.float())
-    y = o.reshape(B, -1).to(x.dtype) @ params["w_o"]
+    with tracing.span("mla.decompress"):
+        k, v = _decompress(params, c_kv, cfg)                      # [B, S, H, hd]
+    with tracing.span("mla.attend"):
+        scale = 1.0 / math.sqrt(hd + rp)
+        s = (torch.einsum("bhd,bshd->bhs", q_n[:, 0].float(), k.float())
+             + torch.einsum("bhr,bsr->bhs", q_r[:, 0].float(), k_rope.float())) * scale
+        valid = torch.arange(S, device=x.device)[None, :] <= p[:, None]   # [B, S]
+        s = torch.where(valid[:, None], s, NEG_INF)
+        o = torch.einsum("bhs,bshd->bhd", torch.softmax(s, dim=-1), v.float())
+        o = o.reshape(B, -1).to(x.dtype)
+    with tracing.span("mla.out"):
+        y = o @ params["w_o"]
     return y[:, None], cache

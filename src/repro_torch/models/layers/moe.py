@@ -46,6 +46,7 @@ import torch.nn.functional as F
 from dataclasses import dataclass
 from typing import Any
 
+from repro_torch import tracing
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers.common import (dtype_of, fp8_dequantize,
                                               fp8_quantize, normal, swiglu)
@@ -191,36 +192,39 @@ def moe_dispatch(params, x, cfg, plan: ShardingPlan, dist: Dist, *,
     e_pad = params["router"].shape[-1]
     cap = capacity(n_tok // G, m.experts_per_token, e_pad, m.capacity_factor)
 
-    logits = xt.float() @ params["router"]
-    gates, idx, probs = route(logits, m.experts_per_token, m.num_experts)
-    k = idx.shape[-1]
-    slot, keep = slot_assignment(idx.reshape(G, n_tok // G, k), e_pad, cap)
-    slot, keep = slot.reshape(n_tok, k), keep.reshape(n_tok, k)
+    with tracing.span("moe.route"):
+        logits = xt.float() @ params["router"]
+        gates, idx, probs = route(logits, m.experts_per_token, m.num_experts)
+        k = idx.shape[-1]
+        slot, keep = slot_assignment(idx.reshape(G, n_tok // G, k), e_pad, cap)
+        slot, keep = slot.reshape(n_tok, k), keep.reshape(n_tok, k)
 
-    # scatter tokens into [E * G*cap, D]; a dropped decision adds zeros at
-    # its group's clamped slot cap-1, as the JAX layer does
-    group = (torch.arange(n_tok, device=x.device) // (n_tok // G))[:, None]
-    flat_idx = (idx * (G * cap) + group * cap
-                + torch.clamp(slot, 0, cap - 1)).reshape(-1)       # [T*k]
-    contrib = xt[:, None, :] * keep[..., None].to(xt.dtype)
-    x_e = torch.zeros((e_pad * G * cap, d), dtype=xt.dtype, device=x.device)
-    x_e.index_add_(0, flat_idx, contrib.reshape(-1, d))
-    x_e = x_e.reshape(e_pad, G * cap, d)
-    # -> [E_loc, ep*C, D]: the rows of this rank's experts from every rank
-    if ep > 1 and plan.a2a_fp8:
-        pending = fp8_dispatch_start(x_e, ep_ax, dist)
-    else:
-        pending = _a2a_start(dist, x_e, ep_ax, 0, 1)
+    with tracing.span("moe.dispatch"):
+        # scatter tokens into [E * G*cap, D]; a dropped decision adds zeros at
+        # its group's clamped slot cap-1, as the JAX layer does
+        group = (torch.arange(n_tok, device=x.device) // (n_tok // G))[:, None]
+        flat_idx = (idx * (G * cap) + group * cap
+                    + torch.clamp(slot, 0, cap - 1)).reshape(-1)   # [T*k]
+        contrib = xt[:, None, :] * keep[..., None].to(xt.dtype)
+        x_e = torch.zeros((e_pad * G * cap, d), dtype=xt.dtype, device=x.device)
+        x_e.index_add_(0, flat_idx, contrib.reshape(-1, d))
+        x_e = x_e.reshape(e_pad, G * cap, d)
+        # -> [E_loc, ep*C, D]: the rows of this rank's experts from every rank
+        if ep > 1 and plan.a2a_fp8:
+            pending = fp8_dispatch_start(x_e, ep_ax, dist)
+        else:
+            pending = _a2a_start(dist, x_e, ep_ax, 0, 1)
     return MoeState(x, flat_idx, gates, keep, idx, probs, G, pending)
 
 
 def moe_experts(params, st: MoeState, plan: ShardingPlan, dist: Dist) -> MoeState:
     """The second stage: wait for the dispatch, run the experts
     (``ops.moe_gmm``) and start the combine all-to-all."""
-    x_e = st.pending.wait()
-    h = kops.moe_gmm(x_e.contiguous(), params["w_gate"], params["w_up"],
-                     params["w_down"])
-    st.pending = _a2a_start(dist, h, plan.ep_axis, 1, 0)            # [E, C, D]
+    with tracing.span("moe.experts"):
+        x_e = st.pending.wait()
+        h = kops.moe_gmm(x_e.contiguous(), params["w_gate"], params["w_up"],
+                         params["w_down"])
+        st.pending = _a2a_start(dist, h, plan.ep_axis, 1, 0)        # [E, C, D]
     return st
 
 
@@ -230,25 +234,27 @@ def moe_combine(params, st: MoeState, cfg, plan: ShardingPlan, dist: Dist, *,
     rows, weight them by the gates, add the shared experts. Returns y
     [B, T, D], or (y, aux) with `collect_aux` (see ``moe_ffn``)."""
     m = cfg.moe
-    h = st.pending.wait()
     x = st.x
     B, t, d = x.shape
     n_tok, G, k = B * t, st.groups, st.idx.shape[-1]
-    # gather back and combine with gates
-    picked = h.reshape(-1, d)[st.flat_idx].reshape(n_tok, k, d)
-    w = (st.gates * st.keep.to(st.gates.dtype)).to(h.dtype)
-    y = torch.einsum("tk,tkd->td", w, picked).reshape(B, t, d)
+    with tracing.span("moe.combine"):
+        h = st.pending.wait()
+        # gather back and combine with gates
+        picked = h.reshape(-1, d)[st.flat_idx].reshape(n_tok, k, d)
+        w = (st.gates * st.keep.to(st.gates.dtype)).to(h.dtype)
+        y = torch.einsum("tk,tkd->td", w, picked).reshape(B, t, d)
 
     if m.num_shared_experts:
-        seq_sharded = dist.size(plan.seq_axis) > 1
-        xs = dist.all_gather(x, plan.seq_axis, dim=1) if seq_sharded else x
-        sh = swiglu(xs, params["w_shared_gate"], params["w_shared_up"],
-                    params["w_shared_down"])
-        if seq_sharded:
-            sh = dist.reduce_scatter(sh, plan.seq_axis, dim=1)
-        else:
-            sh = dist.psum(sh, plan.tp_axis)
-        y = y + sh
+        with tracing.span("moe.shared"):
+            seq_sharded = dist.size(plan.seq_axis) > 1
+            xs = dist.all_gather(x, plan.seq_axis, dim=1) if seq_sharded else x
+            sh = swiglu(xs, params["w_shared_gate"], params["w_shared_up"],
+                        params["w_shared_down"])
+            if seq_sharded:
+                sh = dist.reduce_scatter(sh, plan.seq_axis, dim=1)
+            else:
+                sh = dist.psum(sh, plan.tp_axis)
+            y = y + sh
     if collect_aux:
         return y, aux_load_balance_loss(st.probs.reshape(G, n_tok // G, -1),
                                         st.idx.reshape(G, n_tok // G, k), m.num_experts)

@@ -21,7 +21,7 @@ from typing import List, Optional
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import common
@@ -156,6 +156,29 @@ def train_loss(params, batch, cfg: ModelConfig, plan: Optional[ShardingPlan] = N
     return loss
 
 
+def _prefill(params, batch, cfg: ModelConfig, plan: ShardingPlan, dist: Dist,
+             capacity_groups, sample: bool):
+    """``prefill_logits``; with `sample` the greedy token in place of the
+    logits, inside the same ``lm.head`` span."""
+    with tracing.span("lm.embed"):
+        x = _embed_inputs(params, batch, cfg, plan, dist)
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        enc_out = _encode(params, batch["frames"], cfg, plan, dist)
+    x, caches = tf.apply_stack(params["stack"], x, cfg, plan, dist,
+                               mode="prefill", enc_out=enc_out,
+                               capacity_groups=capacity_groups)
+    with tracing.span("lm.head"):
+        x = common.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+        last = x[:, -1:]
+        n_seq = dist.size(plan.seq_axis)
+        if n_seq > 1:
+            mine = dist.index(plan.seq_axis) == n_seq - 1
+            last = dist.psum(last if mine else torch.zeros_like(last), plan.seq_axis)
+        logits = common.lm_logits(params["embed"], last, cfg, plan, dist)
+        return (common.greedy_sample(logits, cfg, plan, dist) if sample else logits), caches
+
+
 def prefill_logits(params, batch, cfg: ModelConfig,
                    plan: Optional[ShardingPlan] = None,
                    dist: Optional[Dist] = None, *, capacity_groups=None):
@@ -167,28 +190,29 @@ def prefill_logits(params, batch, cfg: ModelConfig,
     final hidden state (a psum of it and zeros). `capacity_groups`: the
     MoE capacity groups (``moe.moe_ffn``; default one)."""
     plan, dist = _plan_dist(plan, dist, "prefill")
-    x = _embed_inputs(params, batch, cfg, plan, dist)
-    enc_out = None
-    if cfg.is_encoder_decoder:
-        enc_out = _encode(params, batch["frames"], cfg, plan, dist)
-    x, caches = tf.apply_stack(params["stack"], x, cfg, plan, dist,
-                               mode="prefill", enc_out=enc_out,
-                               capacity_groups=capacity_groups)
-    x = common.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    last = x[:, -1:]
-    n_seq = dist.size(plan.seq_axis)
-    if n_seq > 1:
-        mine = dist.index(plan.seq_axis) == n_seq - 1
-        last = dist.psum(last if mine else torch.zeros_like(last), plan.seq_axis)
-    return common.lm_logits(params["embed"], last, cfg, plan, dist), caches
+    return _prefill(params, batch, cfg, plan, dist, capacity_groups, sample=False)
 
 
 def prefill(params, batch, cfg: ModelConfig, plan: Optional[ShardingPlan] = None,
             dist: Optional[Dist] = None):
     """Returns (next_token [B, 1] int32, caches). Fills the KV caches."""
     plan, dist = _plan_dist(plan, dist, "prefill")
-    logits, caches = prefill_logits(params, batch, cfg, plan, dist)
-    return common.greedy_sample(logits, cfg, plan, dist), caches
+    return _prefill(params, batch, cfg, plan, dist, None, sample=True)
+
+
+def _decode(params, caches, tokens, pos, cfg: ModelConfig, plan: ShardingPlan,
+            dist: Dist, enc_len: int, capacity_groups, sample: bool):
+    """``decode_logits``; with `sample` the greedy token in place of the
+    logits, inside the same ``lm.head`` span."""
+    with tracing.span("lm.embed"):
+        x = common.embed(params["embed"], tokens, cfg, plan, dist)
+    x, caches = tf.apply_stack(params["stack"], x, cfg, plan, dist,
+                               mode="decode", caches=caches, pos=pos,
+                               enc_len=enc_len, capacity_groups=capacity_groups)
+    with tracing.span("lm.head"):
+        x = common.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+        logits = common.lm_logits(params["embed"], x, cfg, plan, dist)
+        return (common.greedy_sample(logits, cfg, plan, dist) if sample else logits), caches
 
 
 def decode_logits(params, caches, tokens, pos, cfg: ModelConfig,
@@ -202,12 +226,8 @@ def decode_logits(params, caches, tokens, pos, cfg: ModelConfig,
     overrides that rule. enc_len: the encoder positions cross-attention
     reads (encoder-decoder only). Caches are written in place."""
     plan, dist = _plan_dist(plan, dist, "decode")
-    x = common.embed(params["embed"], tokens, cfg, plan, dist)
-    x, caches = tf.apply_stack(params["stack"], x, cfg, plan, dist,
-                               mode="decode", caches=caches, pos=pos,
-                               enc_len=enc_len, capacity_groups=capacity_groups)
-    x = common.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    return common.lm_logits(params["embed"], x, cfg, plan, dist), caches
+    return _decode(params, caches, tokens, pos, cfg, plan, dist, enc_len,
+                   capacity_groups, sample=False)
 
 
 def decode_step(params, caches, tokens, pos, cfg: ModelConfig,
@@ -215,9 +235,8 @@ def decode_step(params, caches, tokens, pos, cfg: ModelConfig,
                 dist: Optional[Dist] = None, *, enc_len: int = 0):
     """One serving step: tokens [B, 1] -> (next token [B, 1], caches)."""
     plan, dist = _plan_dist(plan, dist, "decode")
-    logits, caches = decode_logits(params, caches, tokens, pos, cfg, plan, dist,
-                                   enc_len=enc_len)
-    return common.greedy_sample(logits, cfg, plan, dist), caches
+    return _decode(params, caches, tokens, pos, cfg, plan, dist, enc_len, None,
+                   sample=True)
 
 
 def init_cache(cfg: ModelConfig, plan: Optional[ShardingPlan] = None,

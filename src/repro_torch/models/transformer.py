@@ -20,6 +20,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tracing
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models.layers import attention as attn
 from repro_torch.models.layers import common
@@ -117,7 +118,8 @@ def apply_layer(spec: LayerSpec, p, x, cfg, plan: ShardingPlan, dist: Dist, *,
         if c is not None:
             new_cache["ffn"] = c
     elif spec.ffn == "dense":
-        h = common.dense_ffn(p["ffn"], h, plan, dist)
+        with tracing.span("ffn.dense"):
+            h = common.dense_ffn(p["ffn"], h, plan, dist)
     else:
         groups = capacity_groups
         if groups is None:

@@ -25,7 +25,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 from repro_torch.models.layers.common import dtype_of
@@ -83,18 +83,20 @@ class Engine:
         return rid
 
     def _admit(self):
-        while self.queue and not all(self.live):
-            slot = self.live.index(False)
-            req = self.queue.popleft()
-            tok0, sub = self._prefill_one(req.prompt)
-            kvcache.insert_slot(self.caches, sub, slot)
-            self.pos[slot] = len(req.prompt)
-            self.last_tok[slot] = tok0[0]
-            req.generated = [int(tok0[0, 0])]
-            self.slots[slot] = req
-            self.live[slot] = True
-            if req.generated[-1] == self.eos_id:
-                self._retire(slot)
+        with tracing.span("serve.admit"):
+            while self.queue and not all(self.live):
+                slot = self.live.index(False)
+                req = self.queue.popleft()
+                tok0, sub = self._prefill_one(req.prompt)
+                with tracing.span("serve.insert"):
+                    kvcache.insert_slot(self.caches, sub, slot)
+                self.pos[slot] = len(req.prompt)
+                self.last_tok[slot] = tok0[0]
+                req.generated = [int(tok0[0, 0])]
+                self.slots[slot] = req
+                self.live[slot] = True
+                if req.generated[-1] == self.eos_id:
+                    self._retire(slot)
 
     def _retire(self, slot: int):
         req = self.slots[slot]
@@ -115,15 +117,17 @@ class Engine:
         L = len(prompt)
         if not 0 < L < self.max_seq:
             raise ValueError(f"prompt length {L} not in (0, {self.max_seq})")
-        tokens = torch.tensor([prompt], dtype=torch.int32, device=self.device)
-        batch = {"tokens": tokens}
-        if self.cfg.frontend == "audio_frames":
-            batch["frames"] = torch.zeros((1, L, self.cfg.d_model),
-                                          dtype=dtype_of(self.cfg),
-                                          device=self.device)
-        pplan = dataclasses.replace(self.plan, kind="prefill")
-        tok, sub = M.prefill(self.params, batch, self.cfg, pplan, self.dist)
-        return tok, kvcache.pad_to_capacity(self.cfg, sub, L, self.max_seq)
+        with tracing.span("serve.prefill"):
+            tokens = torch.tensor([prompt], dtype=torch.int32, device=self.device)
+            batch = {"tokens": tokens}
+            if self.cfg.frontend == "audio_frames":
+                batch["frames"] = torch.zeros((1, L, self.cfg.d_model),
+                                              dtype=dtype_of(self.cfg),
+                                              device=self.device)
+            pplan = dataclasses.replace(self.plan, kind="prefill")
+            tok, sub = M.prefill(self.params, batch, self.cfg, pplan, self.dist)
+            tracing.count("serve.prefill_tokens", L)
+            return tok, kvcache.pad_to_capacity(self.cfg, sub, L, self.max_seq)
 
     # ------------------------------------------------------------------
     # decode wave
@@ -132,27 +136,31 @@ class Engine:
     def step(self) -> int:
         """One engine iteration: admit waiting requests, advance all slots
         one token. Returns the number of live slots stepped."""
-        self._admit()
-        n_live = sum(self.live)
-        if n_live == 0:
-            return 0
-        toks, self.caches = M.decode_step(self.params, self.caches,
-                                          self.last_tok, self.pos, self.cfg,
-                                          self.plan, self.dist,
-                                          enc_len=self.enc_len)
-        self.last_tok = toks
-        self.pos = self.pos + 1
-        toks_host, pos_host = toks[:, 0].tolist(), self.pos.tolist()
-        for slot, req in enumerate(self.slots):
-            if req is None:
-                continue
-            t = toks_host[slot]
-            req.generated.append(t)
-            ntok = len(req.generated) - 1       # first came from prefill
-            if (t == self.eos_id or ntok >= req.max_new_tokens
-                    or pos_host[slot] >= self.max_seq - 1):
-                self._retire(slot)
-        return n_live
+        with tracing.span("serve.step"):
+            self._admit()
+            n_live = sum(self.live)
+            if n_live == 0:
+                return 0
+            with tracing.span("serve.wave"):
+                toks, self.caches = M.decode_step(self.params, self.caches,
+                                                  self.last_tok, self.pos, self.cfg,
+                                                  self.plan, self.dist,
+                                                  enc_len=self.enc_len)
+                self.last_tok = toks
+                self.pos = self.pos + 1
+            with tracing.span("serve.readback"):
+                toks_host, pos_host = toks[:, 0].tolist(), self.pos.tolist()
+            with tracing.span("serve.retire"):
+                for slot, req in enumerate(self.slots):
+                    if req is None:
+                        continue
+                    t = toks_host[slot]
+                    req.generated.append(t)
+                    ntok = len(req.generated) - 1       # first came from prefill
+                    if (t == self.eos_id or ntok >= req.max_new_tokens
+                            or pos_host[slot] >= self.max_seq - 1):
+                        self._retire(slot)
+            return n_live
 
     def run(self, max_steps: int = 10_000) -> Dict[int, List[int]]:
         """Drive until every submitted request completes."""
